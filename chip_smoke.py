@@ -19,6 +19,16 @@ Phases, each of which raises on failure (the run then exits non-zero):
 5. Device-resident re-run: load_device, then run_resident_fused and
    run_resident, each equal to the streamed pass within 1e-6.
 6. The K1, K2 and K3 launch counters rose during phases 4 and 5.
+7. The observables pass at full width: the same XTC over a System with
+   the full synthetic topology (charges, bonds, elements), every atom
+   shipped (water is touched), batch 12: gyration, density map, mass and
+   charge density profiles, peptide-membrane RDF, dipole, box volume and
+   lengths, water total dipole, lipid order parameters, water angles,
+   lipid dihedrals, principal moments and a cylinder count.  Checked on
+   2 frames against the float64 oracles of `testing.py`; the resident
+   passes equal the streamed one within 1e-6; `run_many` over the window
+   with this pass and phase 4's equals the two `run(dt)` calls bit for
+   bit in one packed fetch; the K1 and K2 launch counters rose.
 
 The last two stdout lines are the kernels' JSON record and the result line
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
@@ -225,6 +235,146 @@ def kernel_checks(dev):
     return rec
 
 
+def profile_pass(torch, label, fn):
+    """One profiled pass: wall clock, device busy share, top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_events(prof)
+    copy_us = sum(us for k, us, _ in rows if "memcpy" in k.lower())
+    busy_us = sum(us for k, us, _ in rows if "memcpy" not in k.lower())
+    say(f"  profile {label}: wall {wall:.4f} s (profiled), device compute "
+        f"{busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.1f}% busy, "
+        f"memcpy {copy_us / 1e6:.4f} s")
+    for k, us, c in rows[:8]:
+        say(f"    {us / 1e3:9.3f} ms  x{c:<5d} {k[:90]}")
+
+
+def observables_phase(torch, xtc, offs, nat, frame0, box, main_pipe, dev):
+    """Phase 7 -> (K1/K2/K3 launches of its streamed pass, its runner,
+    its resident window)."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch.core.dimension import Dimension
+    from groan_rs_tpu_torch.core.shapes import Cylinder
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.models import TrajectoryAnalysis, run_many
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.parallel import FrameEngine
+
+    say("phase 7: observables pass, full topology, every atom shipped")
+    t0 = time.perf_counter()
+    state = testing.synthetic_state(frame0, box, topology="full")
+    system = convert.system_from_state(state)
+    cyl = Cylinder(*testing.cylinder_args(box), Dimension.Z)
+    pipe = testing.add_observables(TrajectoryAnalysis(system, device=dev),
+                                   state, cyl)
+    runner = pipe.runner(ship="auto")
+    say(f"  system + pipeline built in {time.perf_counter() - t0:.4f} s "
+        f"({len(state['bonds'])} bonds, {len(pipe.order_pairs['order'][0])} "
+        f"order pairs, {len(state['sites']['water_angles'])} angles, "
+        f"{len(state['sites']['lipid_dihedrals'])} dihedrals)")
+    check(runner.sel is None, "ship='auto' ships all atoms (water is touched)")
+
+    K.reset_launch_counts()
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = runner.run(xtc, batch_size=BATCH)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    counts = dict(K.launch_counts)
+    clocks = {k: round(sum(v), 4) for k, v in runner.engine.last_stage_seconds.items()}
+    say(f"  streamed passes: {passes[0]:.4f} s (first), {passes[1]:.4f} s "
+        f"= {N_FRAMES / passes[1]:.2f} frames/s; host clocks of the last "
+        f"{clocks}, fetch {runner.engine.last_fetch_seconds:.4f} s")
+    say(f"  launches during the streamed passes {counts}")
+    for k in ("bai_breen_estimate", "bai_breen_refine"):
+        check(counts[k] > 0, f"{k} launched on the observables path")
+    coords, b9s, *_ = native.xtc_read_frames(xtc, offs, nat)
+    undefined = testing.undefined_sites(coords, nat)
+    for k, v in out.items():
+        if k not in ("times", "steps"):
+            nan = undefined.get(k, np.zeros(v.shape, bool))
+            note = (f" where defined ({int(nan.sum())} items have a zero-length "
+                    "bond in the decoded frame)" if k in undefined else "")
+            check(v.shape[0] == N_FRAMES and bool((np.isfinite(v) | nan).all()),
+                  f"{k}: {v.shape} {v.dtype} finite{note}")
+    coords, b9s = coords[:2], b9s[:2]
+    t0 = time.perf_counter()
+    errs = testing.observable_errors(out, coords, b9s[:, [0, 4, 8]], state, cyl)
+    say(f"  float64 oracles over 2 frames in {time.perf_counter() - t0:.1f} s")
+    for k, (e, bound) in errs.items():
+        check(e <= bound, f"{k} vs float64 oracle: {e:.3e} (bound {bound:g})")
+
+    t0 = time.perf_counter()
+    dt = runner.load_device(xtc, batch_size=BATCH)
+    torch.cuda.synchronize()
+    say(f"  load_device {time.perf_counter() - t0:.4f} s, resident "
+        f"{dt.nbytes / 1e6:.1f} MB ({dt.kind}, {dt.n_frames} frames)")
+    # every result here is deterministic on the card: integer counts are
+    # exact under atomics, and the float density profiles accumulate
+    # with index_put_(accumulate=True), which sums each bin in a fixed
+    # (sorted) order
+    for label, fn in (("run_resident_fused", runner.engine.run_resident_fused),
+                      ("run_resident", runner.engine.run_resident)):
+        res = fn(dt, batch_size=BATCH)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(dt, batch_size=BATCH)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        say(f"  {label}: {best:.4f} s = {N_FRAMES / best:.2f} frames/s")
+        worst = max(float(np.nanmax(np.abs(res[k].astype(np.float64) - out[k])))
+                    for k in res)
+        check(all(np.array_equal(np.isnan(res[k]), np.isnan(out[k])) for k in res
+                  if res[k].dtype.kind == "f"), f"{label}: NaN where streamed is")
+        check(worst <= 1e-6, f"{label} equals streamed (max diff {worst:.1e})")
+
+    fetches = []
+    fetch = FrameEngine.fetch_packed_many
+
+    def counted(sets):
+        fetches.append(len(sets))
+        return fetch(sets)
+
+    FrameEngine.fetch_packed_many = staticmethod(counted)
+    try:
+        t0 = time.perf_counter()
+        many = run_many([pipe, main_pipe], dt, batch_size=BATCH)
+        torch.cuda.synchronize()
+        t_many = time.perf_counter() - t0
+    finally:
+        FrameEngine.fetch_packed_many = staticmethod(fetch)
+    check(fetches == [2], f"run_many made one packed fetch of 2 passes ({fetches})")
+    t0 = time.perf_counter()
+    alone = [runner.run(dt, batch_size=BATCH),
+             main_pipe.runner(ship="all").run(dt, batch_size=BATCH)]
+    torch.cuda.synchronize()
+    t_alone = time.perf_counter() - t0
+    for got, want in zip(many, alone):
+        same = set(got) == set(want) and all(
+            np.array_equal(got[k], want[k], equal_nan=want[k].dtype.kind == "f")
+            for k in want)
+        check(same, f"run_many equals run(dt) bit for bit ({len(want)} keys)")
+    say(f"  run_many {t_many:.4f} s; the two run(dt) calls {t_alone:.4f} s")
+
+    from groan_rs_tpu_torch.ops import distances
+    n_prot, n_mem = testing.synthetic_sizes(nat)
+    frames = dt.pos[:BATCH].float() * dt.inv_prec[:BATCH, None, None]
+    pep, mem = frames[:, :min(400, n_prot)], frames[:, n_prot:n_prot + n_mem]
+    rdf_ms = cuda_ms(lambda: distances.pair_distance_histogram(
+        pep, mem, dt.boxes[:BATCH], 2.0, 200), 3)
+    say(f"  pair_distance_histogram alone, {BATCH} frames x {pep.shape[1]} x "
+        f"{mem.shape[1]} pairs: {rdf_ms:.4f} ms per batch (CUDA events)")
+    return counts, runner, dt
+
+
 def main():
     import torch
 
@@ -363,25 +513,16 @@ def main():
     for k, v in counts.items():
         check(v > 0, f"{k} launched on the main path")
 
-    # ---- where the time goes: one profiled pass of each kind -----------
-    from torch.profiler import ProfilerActivity, profile
+    # ---- 7. the observables pass at full width --------------------------
+    obs_counts, orunner, odt = observables_phase(
+        torch, xtc, offs, nat, c0[0], box, pipe, dev)
 
-    for label, fn in (("streamed", lambda: runner.run(xtc, batch_size=BATCH)),
-                      ("resident", lambda: runner.run(dt, batch_size=BATCH))):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = _device_events(prof)
-        copy_us = sum(us for k, us, _ in rows if "memcpy" in k.lower())
-        busy_us = sum(us for k, us, _ in rows if "memcpy" not in k.lower())
-        say(f"  profile {label}: wall {wall:.4f} s (profiled), device compute "
-            f"{busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.1f}% busy, "
-            f"memcpy {copy_us / 1e6:.4f} s")
-        for k, us, c in rows[:8]:
-            say(f"    {us / 1e3:9.3f} ms  x{c:<5d} {k[:90]}")
+    # ---- where the time goes: one profiled pass of each kind -----------
+    for label, fn in (
+            ("streamed", lambda: runner.run(xtc, batch_size=BATCH)),
+            ("resident", lambda: runner.run(dt, batch_size=BATCH)),
+            ("observables resident", lambda: orunner.run(odt, batch_size=BATCH))):
+        profile_pass(torch, label, fn)
 
     src = {"bai_breen_estimate": ("groan_rs_tpu_torch/csrc/bai_breen.cu",
                                   "groan_rs_tpu/ops/pallas_kernels.py:159"),
@@ -393,7 +534,8 @@ def main():
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": counts[k], "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
-         "shape": rec[k]["shape"]} for k in src]}))
+         "shape": rec[k]["shape"], "observables_launches": obs_counts[k]}
+        for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

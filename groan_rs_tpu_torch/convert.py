@@ -9,6 +9,14 @@ reads from a System.  Keys:
 - `precision`  int (XTC precision of the reference frame)
 - `groups`     `{name: sorted int indices}`
 - `name`       optional system name
+
+Optional (a state without them loads with no charges, no bonds and no
+names):
+
+- `charge`     float32 `[N]`;  `has_charge` bool `[N]`
+- `bonds`      int `[K, 2]` bonded atom pairs
+- `element`    str `[N]` element symbols ('' = not set)
+- `atomname`   str `[N]` atom names
 """
 
 from __future__ import annotations
@@ -28,6 +36,15 @@ def system_from_state(state: dict) -> System:
     topo = Topology(n)
     topo.mass = np.asarray(state["mass"], np.float32).reshape(n).copy()
     topo.has_mass = np.asarray(state["has_mass"], bool).reshape(n).copy()
+    if state.get("charge") is not None:
+        topo.charge = np.asarray(state["charge"], np.float32).reshape(n).copy()
+        topo.has_charge = np.asarray(
+            state.get("has_charge", ~np.isnan(topo.charge)), bool).reshape(n).copy()
+    for key, attr in (("element", "element_symbol"), ("atomname", "atomname")):
+        if state.get(key) is not None:
+            setattr(topo, attr, np.asarray(state[key], str).reshape(n).copy())
+    if state.get("bonds") is not None:
+        topo.set_bonds_from_pairs(state["bonds"])
     box = np.asarray(state["box"], np.float32).reshape(3)
     s = System(state.get("name", "system"), topo,
                simbox=SimBox.from_lengths(*map(float, box)), positions=pos)

@@ -1,1 +1,1 @@
-"""Structure primitives: box, dimension, topology."""
+"""Structure primitives: box, dimension, topology, shapes."""

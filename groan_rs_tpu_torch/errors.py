@@ -32,8 +32,17 @@ class GroupError(GroanError):
     """reference: errors.rs GroupError (nonexistent group, invalid name...)."""
 
 
+class AtomError(GroanError):
+    """reference: errors.rs AtomError (bond to itself, index out of range)."""
+
+
 class SimBoxError(GroanError):
     """reference: errors.rs SimBoxError (missing / non-orthogonal box)."""
+
+
+class ShapeError(GroanError):
+    """reference: errors.rs ShapeError (a shape that cannot be built or
+    has no batched membership test)."""
 
 
 class RMSDError(GroanError):

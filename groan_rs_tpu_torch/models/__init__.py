@@ -1,5 +1,5 @@
 """Composed analyses."""
 
-from .pipeline import PipelineRunner, TrajectoryAnalysis
+from .pipeline import PipelineRunner, TrajectoryAnalysis, run_many
 
-__all__ = ["PipelineRunner", "TrajectoryAnalysis"]
+__all__ = ["PipelineRunner", "TrajectoryAnalysis", "run_many"]

@@ -1,23 +1,32 @@
 """TrajectoryAnalysis: the composed per-frame analysis pass.
 
-Port of the core of `groan_rs_tpu/models/pipeline.py` (`_Idx` :38-75,
-`TrajectoryAnalysis` :105-379 and :538-566, `step_fn` / `runner` /
-`PipelineRunner` :1057-1300) for the observables of this slice:
+Port of `groan_rs_tpu/models/pipeline.py` (`_Idx` :38-75,
+`_hydrogen_mask` :77-103, `TrajectoryAnalysis` :105-882, `step_fn` /
+`runner` / `PipelineRunner` :1057-1300, `run_many` :1488-1544) for
+orthorhombic boxes:
 
     pipe = (TrajectoryAnalysis(system, device="cuda")
             .add_com("Protein")
             .add_distance("Protein", "Membrane", com=(True, False))
             .add_rmsd("Protein", reference=system)
-            .add_min_distance("Peptide", "Membrane"))
+            .add_gyration("Protein")
+            .add_rdf("Peptide", "Membrane"))
     runner = pipe.runner()
     out = runner.run("traj.xtc", batch_size=12)   # dict of [F, ...] arrays
     dt = runner.load_device("traj.xtc")           # decode + ship once
     again = runner.run(dt)                        # device-resident re-run
+    many = run_many([pipe, other], dt)            # one packed fetch
 
-Selections become slices (contiguous ranges: views, no copy) or
-`index_select` gathers over the shipped atom layout; masses and the
-prepared RMSD reference live on the device.  The centres run on the K1 +
-K2 kernels, min distance and contacts on K3 (above the pair threshold).
+Observables: center, com, distance, rmsd, min_distance, contacts,
+gyration, density_map, density_profile, rdf, dipole, box_volume,
+box_lengths, total_dipole, order, angles, dihedrals, principal and
+in_shape.  Selections become slices (contiguous ranges: views, no copy)
+or `index_select` gathers over the shipped atom layout; masses, charges
+and the prepared RMSD reference live on the device.  The centres
+(center, com, distance, rmsd, gyration, dipole, principal) run on the
+K1 + K2 kernels, min distance and contacts on K3 (above the pair
+threshold).  Results are float32, except the int32 density-map and
+in-shape counts (as in the JAX package) and the int64 contact counts.
 
 Not ported yet, and refused with an error naming ROADMAP.md: triclinic
 boxes, velocity observables, meshes and hbond specs.
@@ -34,10 +43,11 @@ from ..core.simbox import simbox_check
 from ..errors import GroupError, ParallelError, RMSDError, SimBoxError
 from ..ops import center as center_ops
 from ..ops import distances as distance_ops
+from ..ops import geometry
 from ..ops import pbc
 from ..ops import rmsd as rmsd_ops
 
-__all__ = ["TrajectoryAnalysis", "PipelineRunner"]
+__all__ = ["TrajectoryAnalysis", "PipelineRunner", "run_many"]
 
 _LATER = "not ported to groan_rs_tpu_torch yet (see ROADMAP.md)"
 
@@ -70,6 +80,54 @@ class _Idx:
         if self.sl is not None:
             return pos[:, self.sl[0]:self.sl[1]]
         return pos.index_select(1, self.j)
+
+
+def _hydrogen_mask(topo) -> np.ndarray:
+    """Per-atom hydrogen flags: element symbol where assigned, else
+    mass < 3.5 amu where present, else the first alphabetic character of
+    the atom name (PDB-style hydrogens like '1HH1' lead with a digit).
+    Each rule runs over the unique strings, not per atom."""
+    out = np.zeros(topo.n_atoms, bool)
+    syms, inv = np.unique(topo.element_symbol, return_inverse=True)
+    stripped = [str(c).strip().upper() for c in syms]
+    has_sym = np.asarray([bool(c) for c in stripped], bool)[inv]
+    out[has_sym] = np.asarray([c == "H" for c in stripped], bool)[inv][has_sym]
+    by_mass = ~has_sym & topo.has_mass
+    out[by_mass] = topo.mass[by_mass] < 3.5
+    rest = ~(has_sym | by_mass)
+    if rest.any():
+        names, inv = np.unique(topo.atomname[rest], return_inverse=True)
+        name_is_h = np.asarray(
+            [next((ch for ch in c if ch.isalpha()), "").upper() == "H"
+             for c in names], bool)
+        out[rest] = name_is_h[inv]
+    return out
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A float32 scalar tensor: dividing by it is a true division (CUDA
+    divides by a Python scalar as a multiply by its reciprocal)."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _histogram(bins, weights, n_bins: int, dtype) -> torch.Tensor:
+    """Per-frame histograms of `[B, n]` bin indices in [0, n_bins) ->
+    `[B, n_bins]`: `weights` (`[B, n]` or `[n]`) summed per bin over the
+    flat int64 index `frame * n_bins + bin`.  Integer counts use
+    `scatter_add_` (exact under atomics); float sums use
+    `index_put_(accumulate=True)`, which sums each bin in a fixed order
+    (sorted, on CUDA) where float atomics would not: the resident and
+    streamed passes then agree bit for bit."""
+    nb = bins.shape[0]
+    flat = (bins.to(torch.int64)
+            + torch.arange(nb, device=bins.device)[:, None] * n_bins).reshape(-1)
+    src = weights.to(dtype).expand(bins.shape).reshape(-1)
+    out = torch.zeros(nb * n_bins, dtype=dtype, device=bins.device)
+    if dtype.is_floating_point:
+        out.index_put_((flat,), src, accumulate=True)
+    else:
+        out.scatter_add_(0, flat, src)
+    return out.reshape(nb, n_bins)
 
 
 def _extract_reference(reference, group: str):
@@ -145,6 +203,38 @@ class TrajectoryAnalysis:
             raise GroupError(f"group '{group}' has atoms without mass",
                              code="InvalidMass")
         return torch.as_tensor(self.system.topology.mass[idx], device=self.device)
+
+    def _charges(self, group: str) -> torch.Tensor:
+        idx = self._indices(group)
+        if not self.system.topology.has_charge[idx].all():
+            raise GroupError(f"group '{group}' has atoms without charge",
+                             code="InvalidCharge")
+        return torch.as_tensor(self.system.topology.charge[idx],
+                               device=self.device)
+
+    def _site_columns(self, sites, width: int, what: str):
+        """Validate a `[K, width]` atom-index site table and register one
+        deferred-index handle per column."""
+        sites = np.asarray(sites, np.int64)
+        if sites.ndim != 2 or sites.shape[1] != width or sites.shape[0] == 0:
+            raise GroupError(
+                f"{what} must be a non-empty [K, {width}] array of atom "
+                "indices", code="InvalidSelection")
+        n = int(self.system.get_n_atoms())
+        if sites.min() < 0 or sites.max() >= n:
+            raise GroupError(f"{what} reference atoms outside 0..{n - 1}",
+                             code="AtomOutOfRange")
+        return [self._register(sites[:, k]) for k in range(width)]
+
+    def _to_center_fn(self, idx: _Idx, w=None):
+        """(pos, boxes) -> the group's minimum-image displacements from
+        its refined centre, [B, n, 3]."""
+        c_fn = self._center_fn(idx, w)
+
+        def fn(pos, boxes):
+            return pbc.min_image(idx.take(pos) - c_fn(pos, boxes)[:, None, :],
+                                 boxes[:, None, :])
+        return fn
 
     def _center_fn(self, idx: _Idx, w=None):
         def fn(pos, boxes):  # boxes [B, 3]
@@ -235,6 +325,306 @@ class TrajectoryAnalysis:
         self._specs.append((name or f"contacts_{group1}_{group2}", fn))
         return self
 
+    def add_gyration(self, group: str, name: str | None = None,
+                     mass_weighted: bool = True, components: bool = False):
+        """Radius of gyration per frame -> [F] nm: Rg = sqrt(sum_i w_i
+        |r_i - c|^2 / sum_i w_i), minimum-image displacements to the
+        group's refined centre c (mass-weighted by default; gmx gyrate).
+        `components=True` -> [F, 4]: Rg plus the radii about x, y, z,
+        sqrt(sum w (|d|^2 - d_a^2) / sum w)."""
+        idx = self._register(self._indices(group))
+        w = self._masses(group) if mass_weighted else None
+        disp = self._to_center_fn(idx, w)
+
+        def wmean(x):                              # [B, n] -> [B]
+            if w is None:
+                return x.mean(-1)
+            return (w[None, :] * x).sum(-1) / w.sum()
+
+        def fn(pos, boxes):
+            d = disp(pos, boxes)
+            r2 = (d * d).sum(-1)
+            rg = torch.sqrt(wmean(r2))
+            if not components:
+                return rg
+            about = torch.stack([torch.sqrt(wmean(r2 - d[..., a] ** 2))
+                                 for a in range(3)], -1)
+            return torch.cat([rg[:, None], about], -1)
+
+        self._specs.append((name or f"gyration_{group}", fn))
+        return self
+
+    def add_density_map(self, group: str, plane: str = "xy",
+                        tile: float = 0.1, span=None, name: str | None = None):
+        """Per-frame 2-D density map of a selection -> [F, nx, ny] int32
+        counts (sum over axis 0 for the accumulated map; the reference's
+        GridMap role, gridmap.rs:52).  plane: 'xy' | 'xz' | 'yz'; tile:
+        bin size (nm); span: ((x0, x1), (y0, y1)), by default the system
+        box at configuration time (not per frame).  Atoms outside the
+        span are not counted."""
+        axes = {"xy": (0, 1), "xz": (0, 2), "yz": (1, 2)}[plane]
+        idx = self._register(self._indices(group))
+        if span is None:
+            box = np.asarray(self.system.box_lengths(), np.float64)
+            span = ((0.0, float(box[axes[0]])), (0.0, float(box[axes[1]])))
+        (x0, x1), (y0, y1) = span
+        nx = max(1, int(round((x1 - x0) / tile)))
+        ny = max(1, int(round((y1 - y0) / tile)))
+        wx, wy = _f32(x1 - x0, self.device), _f32(y1 - y0, self.device)
+
+        def fn(pos, boxes):
+            g = idx.take(pos)                          # [B, n, 3]
+            u = (g[..., axes[0]] - x0) / wx * nx
+            v = (g[..., axes[1]] - y0) / wy * ny
+            ui = torch.clamp(torch.floor(u).to(torch.int32), 0, nx - 1)
+            vi = torch.clamp(torch.floor(v).to(torch.int32), 0, ny - 1)
+            inside = (u >= 0) & (u < nx) & (v >= 0) & (v < ny)
+            hist = _histogram(ui.to(torch.int64) * ny + vi, inside,
+                              nx * ny, torch.int32)
+            return hist.reshape(-1, nx, ny)
+
+        self._specs.append((name or f"density_{group}_{plane}", fn))
+        return self
+
+    def add_density_profile(self, group: str, axis: str = "z",
+                            n_bins: int = 100, mode: str = "number",
+                            name: str | None = None):
+        """Per-frame density profile along a box axis -> [F, n_bins]
+        (gmx density): the axis is cut into `n_bins` slabs by fractional
+        coordinate, so slabs follow the per-frame box; each atom's weight
+        goes into its slab and the sums divide by the slab volume.
+
+        mode: 'number' (atoms/nm^3), 'mass' (kg/m^3: amu/nm^3 times
+        1.66053906660) or 'charge' (e/nm^3).  Slab centres sit at
+        `(i + 0.5) / n_bins` in box fractions."""
+        ax = {"x": 0, "y": 1, "z": 2}.get(axis)
+        if ax is None:
+            raise GroupError(f"unknown axis '{axis}' (use 'x'|'y'|'z')",
+                             code="InvalidAxis")
+        idx = self._register(self._indices(group))
+        if mode == "number":
+            w = torch.ones(int(idx.raw.shape[0]), device=self.device)
+            scale = 1.0
+        elif mode == "mass":
+            w, scale = self._masses(group), 1.66053906660
+        elif mode == "charge":
+            w, scale = self._charges(group), 1.0
+        else:
+            raise GroupError(f"unknown density mode '{mode}'", code="InvalidMode")
+        n_bins = int(n_bins)
+
+        def fn(pos, boxes):
+            g = idx.take(pos)
+            frac = g[..., ax] / boxes[:, None, ax]
+            vol = torch.prod(boxes, -1)
+            frac = frac - torch.floor(frac)
+            bi = torch.clamp((frac * n_bins).to(torch.int32), 0, n_bins - 1)
+            hist = _histogram(bi, w, n_bins, torch.float32)
+            return hist * (n_bins * scale) / vol[:, None]
+
+        self._specs.append((name or f"profile_{group}_{axis}", fn))
+        return self
+
+    def add_rdf(self, group1: str, group2: str, r_max: float = 2.0,
+                n_bins: int = 200, name: str | None = None):
+        """Radial distribution function g(r) between two selections per
+        frame -> [F, n_bins]: the minimum-image pair-distance histogram
+        (`ops.distances.pair_distance_histogram`, chunked over group1's
+        atoms) over the ideal-gas shell counts.  Bin centres are
+        `(np.arange(n_bins) + 0.5) * r_max / n_bins`."""
+        i1 = self._register(self._indices(group1))
+        i2 = self._register(self._indices(group2))
+        same = group1 == group2
+        n1, n2 = int(i1.raw.shape[0]), int(i2.raw.shape[0])
+        r_max, n_bins = float(r_max), int(n_bins)
+
+        def fn(pos, boxes):
+            hist = distance_ops.pair_distance_histogram(
+                i1.take(pos), i2.take(pos), boxes, r_max, n_bins,
+                exclude_self=same)
+            ideal = distance_ops.rdf_normalization(boxes, n1, n2, r_max, n_bins,
+                                                   exclude_self=same)
+            return hist.to(torch.float32) / ideal
+
+        self._specs.append((name or f"rdf_{group1}_{group2}", fn))
+        return self
+
+    def add_dipole(self, group: str, name: str | None = None):
+        """Per-frame dipole moment of a group -> [F, 3] e*nm (gmx
+        dipoles): mu = sum_i q_i d_i, d_i the minimum-image displacement
+        from the group's refined centre of mass.  1 e*nm = 48.032047
+        Debye.  Needs charges and masses."""
+        idx = self._register(self._indices(group))
+        q = self._charges(group)
+        disp = self._to_center_fn(idx, self._masses(group))
+
+        def fn(pos, boxes):
+            return (q[None, :, None] * disp(pos, boxes)).sum(1)
+
+        self._specs.append((name or f"dipole_{group}", fn))
+        return self
+
+    def add_box_volume(self, name: str = "box_volume"):
+        """Per-frame box volume Lx*Ly*Lz -> [F] nm^3."""
+        self._specs.append((name, lambda pos, boxes: torch.prod(boxes, -1)))
+        return self
+
+    def add_box_lengths(self, name: str = "box_lengths"):
+        """Per-frame box edge lengths -> [F, 3] nm.  The step returns the
+        batch's box tensor itself; the engine copies results that share a
+        staging buffer's storage before it refills the buffer."""
+        self._specs.append((name, lambda pos, boxes: boxes))
+        return self
+
+    def add_total_dipole(self, group: str, name: str | None = None):
+        """Per-frame total dipole M of a group -> [F, 3] e*nm (gmx
+        dipoles M_tot): the sum over molecules of sum_{i in m} q_i d_i,
+        d_i the minimum-image displacement of atom i from its molecule's
+        first group atom (summing q_i r_i over whole molecules for any
+        molecule smaller than half the box).  Molecules come from the
+        bond graph (`Topology.molecule_ids`).  Needs charges (and bonds:
+        without them every atom is its own molecule)."""
+        idx_np = self._indices(group)
+        q = self._charges(group)
+        mol = self.system.topology.molecule_ids()[idx_np]
+        uniq, first = np.unique(mol, return_index=True)
+        ref = torch.as_tensor(first[np.searchsorted(uniq, mol)],
+                              dtype=torch.int64, device=self.device)
+        idx = self._register(idx_np)
+
+        def fn(pos, boxes):
+            g = idx.take(pos)
+            d = pbc.min_image(g - g.index_select(1, ref), boxes[:, None, :])
+            return (q[None, :, None] * d).sum(1)
+
+        self._specs.append((name or f"total_dipole_{group}", fn))
+        return self
+
+    def add_order(self, group: str, axis="z", name: str | None = None):
+        """Per-frame bond order parameters -> [F, P] (gmx order): for
+        every heavy atom -> bonded hydrogen bond of `group`, S = (3 cos^2
+        theta - 1) / 2 with theta between the minimum-image bond vector
+        and `axis` ('x' | 'y' | 'z' or a 3-vector, normalised here).
+
+        Hydrogens as `_hydrogen_mask` finds them; the partner need not be
+        in `group`.  Pairs are in file order of the heavy atom, then of
+        the hydrogen; their global indices are kept in
+        `self.order_pairs[name]`.  Needs bonds."""
+        idxg = self._indices(group)
+        topo = self.system.topology
+        is_h = _hydrogen_mask(topo)
+        offsets, flat = topo.bonds_csr()
+        heavy = idxg[~is_h[idxg]]
+        cnt = offsets[heavy + 1] - offsets[heavy]
+        at = np.repeat(offsets[heavy] - np.cumsum(cnt) + cnt, cnt) \
+            + np.arange(int(cnt.sum()))
+        nbr = flat[at]
+        keep = is_h[nbr]
+        c_idx = np.repeat(heavy, cnt)[keep].astype(np.int64)
+        h_idx = nbr[keep].astype(np.int64)
+        if not c_idx.shape[0]:
+            raise GroupError(
+                f"group '{group}' has no heavy-atom-hydrogen bonds (does "
+                "the topology carry bonds?)", code="NoBonds")
+        ic = self._register(c_idx)
+        ih = self._register(h_idx)
+        if isinstance(axis, str):
+            ax = {"x": 0, "y": 1, "z": 2}.get(axis)
+            if ax is None:
+                raise GroupError(f"unknown axis '{axis}' (use 'x'|'y'|'z' "
+                                 "or a 3-vector)", code="InvalidAxis")
+            nvec = np.zeros(3, np.float32)
+            nvec[ax] = 1.0
+        else:
+            nvec = np.asarray(axis, np.float64)
+            nrm = float(np.linalg.norm(nvec))
+            if not nrm > 0:
+                raise GroupError("axis vector must be non-zero",
+                                 code="InvalidAxis")
+            nvec = (nvec / nrm).astype(np.float32)
+        n_t = torch.as_tensor(nvec, device=self.device)
+
+        def fn(pos, boxes):
+            d = pbc.min_image(ih.take(pos) - ic.take(pos), boxes[:, None, :])
+            cos2 = torch.square(d @ n_t) / (d * d).sum(-1)
+            return 1.5 * cos2 - 0.5
+
+        nm = name or f"order_{group}"
+        if not hasattr(self, "order_pairs"):
+            self.order_pairs = {}
+        self.order_pairs[nm] = (c_idx, h_idx)
+        self._specs.append((nm, fn))
+        return self
+
+    def add_angles(self, triplets, name: str | None = None):
+        """Per-frame angles over `[K, 3]` atom-index triplets -> [F, K]
+        degrees in [0, 180] (gmx angle); the middle column is the vertex.
+        Minimum-image displacements, so PBC-split molecules are right."""
+        ia, ib, ic = self._site_columns(triplets, 3, "triplets")
+
+        def fn(pos, boxes):
+            return geometry.angles(ia.take(pos), ib.take(pos), ic.take(pos),
+                                   boxes)
+
+        self._specs.append((name or "angles", fn))
+        return self
+
+    def add_dihedrals(self, quadruplets, name: str | None = None):
+        """Per-frame signed dihedrals over `[K, 4]` atom-index chains
+        a-b-c-d -> [F, K] degrees in (-180, 180], IUPAC convention,
+        trans = 180 (gmx angle -type dihedral)."""
+        ia, ib, ic, id_ = self._site_columns(quadruplets, 4, "quadruplets")
+
+        def fn(pos, boxes):
+            return geometry.dihedrals(ia.take(pos), ib.take(pos), ic.take(pos),
+                                      id_.take(pos), boxes)
+
+        self._specs.append((name or "dihedrals", fn))
+        return self
+
+    def add_principal(self, group: str, name: str | None = None,
+                      mass_weighted: bool = True):
+        """Per-frame principal moments of inertia -> [F, 3] ascending (gmx
+        principal), in amu nm^2 (nm^2 unweighted): the eigenvalues of
+        I = sum_i w_i (|d_i|^2 E - d_i d_i^T), d_i the minimum-image
+        displacements from the group's refined centre.
+
+        I is built from the 3x3 sums S = sum w d d^T (one batched matmul,
+        TF32 off): I_aa = S_bb + S_cc, I_ab = -S_ab, so no [B, n, 3, 3]
+        tensor exists.  `torch.linalg.eigvalsh`, ascending."""
+        idx = self._register(self._indices(group))
+        w = (self._masses(group) if mass_weighted
+             else torch.ones(int(idx.raw.shape[0]), device=self.device))
+        disp = self._to_center_fn(idx, w)
+
+        def fn(pos, boxes):
+            d = disp(pos, boxes)
+            s = torch.matmul((d * w[None, :, None]).transpose(1, 2), d)
+            diag = s.diagonal(dim1=1, dim2=2)
+            moments = torch.stack([diag[:, 1] + diag[:, 2],
+                                   diag[:, 0] + diag[:, 2],
+                                   diag[:, 0] + diag[:, 1]], -1)
+            inertia = torch.diag_embed(moments) - (s - torch.diag_embed(diag))
+            return torch.linalg.eigvalsh(inertia)
+
+        self._specs.append((name or f"principal_{group}", fn))
+        return self
+
+    def add_in_shape(self, group: str, shape, name: str | None = None):
+        """Per-frame count of `group` atoms inside a `core.shapes` Sphere,
+        Rectangular or Cylinder -> [F] int32, with the shapes' PBC
+        semantics (`ops.geometry.inside_shape`).  Any other shape raises
+        ShapeError here, at configuration time."""
+        geometry.inside_shape(shape, torch.zeros(1, 1, 3), torch.ones(1, 3))
+        idx = self._register(self._indices(group))
+
+        def fn(pos, boxes):
+            return geometry.inside_shape(shape, idx.take(pos), boxes).sum(
+                1, dtype=torch.int32)
+
+        self._specs.append((name or f"in_shape_{group}", fn))
+        return self
+
     def add_hbonds(self, *args, **kwargs):
         raise ParallelError(f"hbond observables are {_LATER}")
 
@@ -301,6 +691,17 @@ class PipelineRunner:
         return traj_iter(self.system, filename, indices=self.sel,
                          batch_size=batch_size)
 
+    def _check_layout(self, dt) -> None:
+        """Refuse a DeviceTrajectory shipped with another atom layout: one
+        of the same width would raise no shape error and read the wrong
+        atoms."""
+        if (dt.sel is None) != (self.sel is None) or (
+                dt.sel is not None and not np.array_equal(dt.sel, self.sel)):
+            raise ParallelError(
+                "this DeviceTrajectory holds another atom layout than the "
+                "runner ships; load it through this runner, or build every "
+                "runner with ship='all' so they share one layout")
+
     def load_device(self, filename, *, batch_size: int = 32):
         """Decode and ship a trajectory once into device memory; pass the
         returned `DeviceTrajectory` to `run` to re-analyse it."""
@@ -321,11 +722,7 @@ class PipelineRunner:
 
         if isinstance(filename, DeviceTrajectory):
             dt = filename
-            if (dt.sel is None) != (self.sel is None) or (
-                    dt.sel is not None and not np.array_equal(dt.sel, self.sel)):
-                raise ParallelError(
-                    "this DeviceTrajectory holds another atom layout than "
-                    "the runner ships; load it through this runner")
+            self._check_layout(dt)
             if -(-dt.n_frames // max(1, batch_size)) >= 4:
                 out = self.engine.run_resident_fused(dt, batch_size=batch_size)
             else:
@@ -338,3 +735,36 @@ class PipelineRunner:
         out["times"] = reader.times
         out["steps"] = reader.steps
         return out
+
+
+def run_many(analyses, trajectory, *, batch_size: int = 32):
+    """Run several analyses over ONE device-resident trajectory and fetch
+    every pass's results in a single packed fetch (one transfer per
+    dtype) -> a list of result dicts, each equal to that analysis's own
+    `runner.run(trajectory)` on the per-batch resident path.
+
+    `analyses`: `TrajectoryAnalysis` (compiled here) or `PipelineRunner`
+    instances.  A bare analysis compiles for the trajectory's layout:
+    with `ship="all"` when the trajectory holds every atom (`sel` None),
+    else with the default union of touched atoms, which must then be the
+    trajectory's (build runners for a group layout yourself)."""
+    from ..parallel.engine import DeviceTrajectory, FrameEngine
+
+    if not isinstance(trajectory, DeviceTrajectory):
+        raise ParallelError("run_many analyses a DeviceTrajectory; load one "
+                            "with runner.load_device(filename)")
+    if not analyses:
+        return []
+    ship = "all" if trajectory.sel is None else "auto"
+    runners = [a.runner(ship=ship) if isinstance(a, TrajectoryAnalysis) else a
+               for a in analyses]
+    sets = []
+    for r in runners:
+        r._check_layout(trajectory)
+        sets.append(r.engine.run_resident(trajectory, batch_size=batch_size,
+                                          fetch=False))
+    results = FrameEngine.fetch_packed_many(sets)
+    for out in results:
+        out["times"] = trajectory.times
+        out["steps"] = trajectory.steps
+    return results

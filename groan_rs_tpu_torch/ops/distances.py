@@ -1,6 +1,8 @@
-"""Pair reductions between two selections: minimum distance, contacts.
+"""Pair reductions between two selections: minimum distance, contacts,
+and the pair-distance histogram of the RDF.
 
-Port of `groan_rs_tpu/ops/distances.py:29-43`, `:127-144` and `:155-195`.
+Port of `groan_rs_tpu/ops/distances.py:29-43`, `:127-144`, `:155-195`
+and `:198-251`.
 Large unmasked selections route to the tiled pair kernel (K3,
 `ops.kernels.pair_reduce`), which never materialises N x M; small or
 masked ones take the dense path (`distance_matrix`, the JAX package's own
@@ -12,12 +14,14 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from . import kernels
 from .pbc import min_image
 
-__all__ = ["distance_matrix", "min_distance", "contact_count"]
+__all__ = ["distance_matrix", "min_distance", "contact_count",
+           "pair_distance_histogram", "rdf_normalization"]
 
 # at or above this many pairs (N*M) unmasked calls route to K3; below it the
 # dense path (and masks) apply — GROAN_PAIR_TILE_THRESHOLD as in groan_rs_tpu
@@ -90,3 +94,60 @@ def min_distance(a, b, box, mask_a=None, mask_b=None):
               else torch.as_tensor(mask_b, device=a.device)[..., None, :])
         d = torch.where(ma & mb, d, torch.full((), torch.inf, device=a.device))
     return d.amin(dim=(-2, -1))
+
+
+def pair_distance_histogram(a, b, box, r_max: float, n_bins: int,
+                            exclude_self: bool = False,
+                            chunk_pairs: int = 1 << 24):
+    """Per-frame histogram of PBC pair distances in (0, r_max] ->
+    `[B, n_bins]` int64 counts (the JAX package returns int32).
+
+    a `[B, N, 3]`, b `[B, M, 3]`, box `[B, 3]`.  Bin k counts pairs with
+    distance in (k*dr, (k+1)*dr], dr = r_max / n_bins: the bin is
+    `ceil(d / dr) - 1`, valid where d > 0 and the bin is in range.
+    `exclude_self=True` drops the diagonal i == j (a same-group RDF).
+
+    The JAX form builds the `[B, N, M]` matrix and relies on XLA fusing it
+    away; here the rows of `a` go in chunks of at most `chunk_pairs`
+    pairs, so no `[B, N, M]` tensor exists.  Counts accumulate with an
+    integer `scatter_add_` on a flat `frame * n_bins + bin` index (exact
+    under atomics); invalid pairs go to a spill region indexed by the `b`
+    atom, which keeps them off a single hot address and is dropped."""
+    nb, n, m = a.shape[0], a.shape[1], b.shape[1]
+    box = _box_rows(box, a)
+    dev = a.device
+    n_bins = int(n_bins)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, which rounds bin edges unlike the JAX division
+    dr = torch.tensor(r_max / n_bins, dtype=torch.float32, device=dev)
+    total = nb * n_bins
+    spill = total + torch.arange(m, device=dev) % 4096
+    base = (torch.arange(nb, device=dev) * n_bins)[:, None, None]
+    counts = torch.zeros(total + min(m, 4096), dtype=torch.int64, device=dev)
+    ones = torch.ones((), dtype=torch.int64, device=dev)
+    step = max(1, chunk_pairs // max(1, nb * m))
+    for i0 in range(0, n, step):
+        d = distance_matrix(a[:, i0:i0 + step], b, box)   # [B, c, M]
+        idx = torch.ceil(d / dr).to(torch.int32) - 1
+        valid = (d > 0.0) & (idx >= 0) & (idx < n_bins)
+        if exclude_self:
+            rows = torch.arange(i0, i0 + d.shape[1], device=dev)
+            valid &= rows[:, None] != torch.arange(m, device=dev)[None, :]
+        flat = torch.where(valid, base + idx, spill)
+        counts.scatter_add_(0, flat.reshape(-1), ones.expand(flat.numel()))
+    return counts[:total].reshape(nb, n_bins)
+
+
+def rdf_normalization(box_lengths, n_a: int, n_b: int, r_max: float,
+                      n_bins: int, exclude_self: bool = False):
+    """Ideal-gas shell counts that turn a pair histogram into g(r):
+    `n_pairs * V_shell_k / V_box` per frame, `[B, n_bins]` float32 for
+    `[B, 3]` box lengths."""
+    dr = r_max / n_bins
+    edges = np.arange(n_bins + 1) * dr
+    shell = 4.0 / 3.0 * np.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
+    b = torch.as_tensor(box_lengths, dtype=torch.float32)
+    vol = torch.prod(b, dim=-1)
+    n_pairs = n_a * n_b - (n_a if exclude_self else 0)
+    shell_t = torch.as_tensor(shell, dtype=torch.float32, device=b.device)
+    return n_pairs * shell_t / vol[..., None]

@@ -40,6 +40,11 @@ class System:
     def get_box(self) -> SimBox | None:
         return self.simbox
 
+    def box_lengths(self) -> np.ndarray:
+        """`(3,)` float32 orthogonal box lengths (raises SimBoxError for a
+        missing, triclinic or invalid box)."""
+        return simbox_check(self.simbox).to_lengths_vec()
+
     def set_precision(self, v: int) -> None:
         self.precision = int(v)
 

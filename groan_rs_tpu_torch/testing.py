@@ -1,8 +1,9 @@
 """Float64 oracles and a synthetic-system factory, shared by the tests and
 `chip_smoke.py`.
 
-The oracles are the JAX package's bench references (`bench.py:122-157`),
-independent of the code under test:
+The oracles are independent of the code under test (none calls the
+port's functions).  The first three are the JAX package's bench
+references (`bench.py:122-157`):
 
 - `host_refined_center` — the refined Bai-Breen centre
   (iterators.rs:1237-1266) in float64 numpy.
@@ -10,12 +11,25 @@ independent of the code under test:
   determinant fix (rmsd.rs:547-604) in float64 numpy.
 - `host_min_distance` — minimum-image min distance, chunked in float64.
 
+The rest are written from the formulas of the observables' docstrings in
+`groan_rs_tpu/models/pipeline.py` and `ops/geometry.py`, one frame at a
+time: `host_gyration`, `host_principal`, `host_dipole`,
+`host_total_dipole`, `host_order`, `angles_host_f64`,
+`dihedrals_host_f64`, `host_density_profile`, and for the counting
+observables `host_density_map`, `host_in_shape` and
+`host_pair_histogram`, which return `(lo, hi)` bounds: an item within
+`tol` nm of a bin edge or a shape boundary is counted in `hi` for every
+bin it may fall in and in no `lo`, so a float32 result is right when
+`lo <= got <= hi`.
+
 The factory (`bench.py:53-119`, `:160-179`) lays out a solvated
 membrane-protein system at any atom count: a compact protein blob at the
 box centre, a lipid-like membrane slab, water triplets; contiguous
 molecules sorted spatially as real GROMACS output is; a drifting
 multi-frame XTC written with this package's native codec.  Everything is
-made from fixed seeds.
+made from fixed seeds.  `synthetic_state(..., topology="full")` adds
+charges, bonds, element symbols, atom names, a Water group and site
+tables (`synthetic_layout` describes the layout it follows).
 """
 
 from __future__ import annotations
@@ -27,7 +41,13 @@ import numpy as np
 from .io import native
 
 __all__ = ["host_refined_center", "host_kabsch_rmsd", "host_min_distance",
-           "synthetic_sizes", "build_trajectory", "synthetic_state"]
+           "host_gyration", "host_principal", "host_dipole",
+           "host_total_dipole", "host_order", "angles_host_f64",
+           "dihedrals_host_f64", "host_density_profile", "host_density_map",
+           "host_in_shape", "host_pair_histogram", "cylinder_args",
+           "add_observables", "observable_errors", "undefined_sites",
+           "synthetic_sizes",
+           "synthetic_layout", "build_trajectory", "synthetic_state"]
 
 
 def host_refined_center(p, box, w=None):
@@ -146,15 +166,59 @@ def build_trajectory(path, n_atoms: int, n_frames: int, box_len: float = 21.0,
     return pos, box
 
 
-def synthetic_state(frame0, box, precision: int = 1000) -> dict:
+LIPID_SIZE = 50  # atoms per synthetic lipid (build_trajectory's membrane)
+
+
+def synthetic_layout(n_atoms: int) -> dict:
+    """Index ranges and molecule tables of the synthetic layout.
+
+    Protein `[0, n_prot)`, membrane `[n_prot, w0)` as 50-atom lipids,
+    water `[w0, n)` as O-H-H triplets (the last one may be cut short).
+    In every lipid, local atoms k with k % 3 == 2 are hydrogens bonded
+    to atom k - 1; the other atoms form the lipid's heavy chain."""
+    n_prot, n_mem = synthetic_sizes(n_atoms)
+    w0 = n_prot + n_mem
+    mem = np.arange(n_mem)
+    is_h = (mem % LIPID_SIZE) % 3 == 2
+    heavy = mem[~is_h]
+    same = heavy[:-1] // LIPID_SIZE == heavy[1:] // LIPID_SIZE
+    chain = np.stack([heavy[:-1][same], heavy[1:][same]], 1) + n_prot
+    hyd = mem[is_h] + n_prot
+    # four consecutive heavy atoms of one lipid
+    quad = np.stack([heavy[:-3], heavy[1:-2], heavy[2:-1], heavy[3:]], 1)
+    quad = quad[quad[:, 0] // LIPID_SIZE == quad[:, 3] // LIPID_SIZE] + n_prot
+    oxy = np.arange(w0, n_atoms, 3)
+    whole = oxy[oxy + 2 < n_atoms]
+    return {
+        "n_prot": n_prot, "n_mem": n_mem, "w0": w0,
+        "lipid_hydrogens": hyd,
+        "lipid_bonds": np.concatenate([chain, np.stack([hyd - 1, hyd], 1)]),
+        "water_oxygens": oxy,
+        "water_bonds": np.concatenate(
+            [np.stack([oxy, oxy + k], 1)[oxy + k < n_atoms] for k in (1, 2)]),
+        "water_angles": np.stack([whole + 1, whole, whole + 2], 1),
+        "lipid_dihedrals": quad,
+    }
+
+
+def synthetic_state(frame0, box, precision: int = 1000,
+                    topology: str | None = None) -> dict:
     """The System state (see `convert.system_from_state`) of the synthetic
     layout: random masses in [1, 16) from a fixed seed, groups Protein,
     Membrane and Peptide (the first 400 protein atoms, fewer when the
-    protein is smaller, so that Peptide never overlaps Membrane)."""
+    protein is smaller, so that Peptide never overlaps Membrane).
+
+    `topology="full"` adds, leaving the masses and groups above as they
+    are: TIP3P-like water charges (O -0.834, H +0.417) with O-H bonds, a
+    net-neutral seeded charge pattern on the protein, neutral lipids
+    with a bonded heavy chain and a bonded hydrogen on every third atom,
+    element symbols and atom names, the group Water, and under `sites`
+    the water H-O-H triplets (`water_angles`) and four-atom windows
+    along each lipid chain (`lipid_dihedrals`)."""
     n = frame0.shape[0]
     n_prot, n_mem = synthetic_sizes(n)
     masses = np.random.default_rng(3).uniform(1.0, 16.0, size=n).astype(np.float32)
-    return {
+    state = {
         "name": "synthetic",
         "positions": np.asarray(frame0, np.float32),
         "box": np.asarray(box, np.float32),
@@ -167,3 +231,374 @@ def synthetic_state(frame0, box, precision: int = 1000) -> dict:
             "Peptide": np.arange(min(400, n_prot)),
         },
     }
+    if topology is None:
+        return state
+    if topology != "full":
+        raise ValueError(f"unknown topology '{topology}' (None or 'full')")
+    lay = synthetic_layout(n)
+    w0, oxy, hyd = lay["w0"], lay["water_oxygens"], lay["lipid_hydrogens"]
+    q = np.zeros(n, np.float64)
+    qp = np.random.default_rng(5).uniform(-0.5, 0.5, n_prot)
+    q[:n_prot] = qp - qp.mean()
+    q[w0:] = 0.417
+    q[oxy] = -0.834
+    element = np.full(n, "C", "<U2")
+    name = np.full(n, "CA", "<U3")
+    name[n_prot:w0] = "C"
+    element[hyd] = name[hyd] = "H"
+    element[w0:] = "H"
+    element[oxy] = "O"
+    name[w0:] = np.asarray(["OW", "HW1", "HW2"])[(np.arange(w0, n) - w0) % 3]
+    state.update({
+        "charge": q.astype(np.float32),
+        "has_charge": np.ones(n, bool),
+        "bonds": np.concatenate([lay["lipid_bonds"], lay["water_bonds"]]),
+        "element": element,
+        "atomname": name,
+        "sites": {"water_angles": lay["water_angles"],
+                  "lipid_dihedrals": lay["lipid_dihedrals"]},
+    })
+    state["groups"]["Water"] = np.arange(w0, n)
+    return state
+
+
+# ------------------------------------------------- oracles of the observables
+
+
+def _mi(d, box):
+    """Float64 minimum image of displacements `d` [..., 3] in `box`."""
+    return d - box * np.round(d / box)
+
+
+def _to_center(p, box, w):
+    p = np.asarray(p, np.float64)
+    box = np.asarray(box, np.float64)
+    return _mi(p - host_refined_center(p, box, w), box)
+
+
+def host_gyration(p, box, w=None, components: bool = False):
+    """Radius of gyration of one frame: sqrt(sum w |d|^2 / sum w) with d
+    the minimum image from the refined centre (mass-weighted when `w`);
+    with `components`, also the radii about x, y, z:
+    sqrt(sum w (|d|^2 - d_a^2) / sum w)."""
+    d = _to_center(p, box, w)
+    ww = np.ones(d.shape[0]) if w is None else np.asarray(w, np.float64)
+    r2 = (d * d).sum(-1)
+    rg = np.sqrt((ww * r2).sum() / ww.sum())
+    if not components:
+        return rg
+    about = [np.sqrt((ww * (r2 - d[:, a] ** 2)).sum() / ww.sum()) for a in range(3)]
+    return np.asarray([rg] + about)
+
+
+def host_principal(p, box, w):
+    """Principal moments of inertia of one frame, ascending:
+    eigenvalues of sum w (|d|^2 I - d d^T), d from the refined centre."""
+    d = _to_center(p, box, w)
+    w = np.asarray(w, np.float64)
+    inertia = np.eye(3) * (w * (d * d).sum(-1)).sum() - (w[:, None] * d).T @ d
+    return np.linalg.eigvalsh(inertia)
+
+
+def host_dipole(p, box, q, w):
+    """Dipole sum q d of one frame, d the minimum image from the refined
+    centre of mass."""
+    return (np.asarray(q, np.float64)[:, None] * _to_center(p, box, w)).sum(0)
+
+
+def host_total_dipole(p, box, q, mol):
+    """Total dipole of one frame: sum over molecules of sum q_i d_i, d_i
+    the minimum image of atom i from the first atom of its molecule
+    (`mol`: any molecule label per atom)."""
+    p = np.asarray(p, np.float64)
+    _, inv = np.unique(mol, return_inverse=True)
+    first = np.full(inv.max() + 1, p.shape[0])
+    np.minimum.at(first, inv, np.arange(p.shape[0]))
+    d = _mi(p - p[first[inv]], np.asarray(box, np.float64))
+    return (np.asarray(q, np.float64)[:, None] * d).sum(0)
+
+
+def host_order(p_heavy, p_hydrogen, box, axis):
+    """Bond order parameters of one frame: S = (3 cos^2 - 1) / 2 of the
+    minimum-image heavy -> hydrogen vectors against the unit `axis`."""
+    d = _mi(np.asarray(p_hydrogen, np.float64) - np.asarray(p_heavy, np.float64),
+            np.asarray(box, np.float64))
+    n = np.asarray(axis, np.float64)
+    n = n / np.linalg.norm(n)
+    cos2 = (d @ n) ** 2 / (d * d).sum(-1)
+    return 1.5 * cos2 - 0.5
+
+
+def angles_host_f64(a, b, c, boxes):
+    """Float64 angles a-b-c in degrees, `[B, K, 3]` points and `[B, 3]`
+    boxes (moved here from `groan_rs_tpu/ops/geometry.py:140`)."""
+    box = np.asarray(boxes, np.float64)[:, None, :]
+    b = np.asarray(b, np.float64)
+    va = _mi(np.asarray(a, np.float64) - b, box)
+    vc = _mi(np.asarray(c, np.float64) - b, box)
+    cross = np.cross(va, vc)
+    return np.degrees(np.arctan2(np.sqrt((cross * cross).sum(-1)),
+                                 (va * vc).sum(-1)))
+
+
+def dihedrals_host_f64(a, b, c, d, boxes):
+    """Float64 signed dihedrals a-b-c-d in degrees, IUPAC convention
+    (moved here from `groan_rs_tpu/ops/geometry.py:154`)."""
+    box = np.asarray(boxes, np.float64)[:, None, :]
+    a, b, c, d = (np.asarray(x, np.float64) for x in (a, b, c, d))
+    b1 = _mi(b - a, box)
+    b2 = _mi(c - b, box)
+    b3 = _mi(d - c, box)
+    n1 = np.cross(b1, b2)
+    n2 = np.cross(b2, b3)
+    b2n = b2 / np.linalg.norm(b2, axis=-1, keepdims=True)
+    y = (np.cross(n1, n2) * b2n).sum(-1)
+    return np.degrees(np.arctan2(y, (n1 * n2).sum(-1)))
+
+
+def host_density_profile(p, box, axis: int, n_bins: int, w, scale: float = 1.0):
+    """Density profile of one frame along `axis`: each atom's weight
+    goes to slab int(frac * n_bins), frac = x / L - floor(x / L); sums
+    times n_bins * scale / volume.  The slab index follows the
+    observable's float32 rule, so no atom sits on the other side of an
+    edge; the sums are float64."""
+    x = np.asarray(p, np.float32)[:, axis]
+    box32 = np.asarray(box, np.float32)
+    frac = x / box32[axis]
+    frac = frac - np.floor(frac)
+    bins = np.clip((frac * np.float32(n_bins)).astype(np.int32), 0, n_bins - 1)
+    hist = np.bincount(bins, weights=np.asarray(w, np.float64), minlength=n_bins)
+    return hist * (n_bins * scale) / np.prod(np.asarray(box, np.float64))
+
+
+def _edge_bins(x, lo, width, n, tol):
+    """Bins of coordinates `x` on edges lo + k * width: (sure bin or -1
+    when within `tol` of an edge, [two candidate bins] per item)."""
+    u = (np.asarray(x, np.float64) - lo) / width
+    k = np.round(u)
+    near = np.abs(u - k) * width < tol
+    sure = np.where(near, -1, np.floor(u)).astype(np.int64)
+    sure[(sure < 0) | (sure >= n)] = -1
+    cand = np.stack([k - 1, k], -1).astype(np.int64)
+    cand[~near] = np.stack([sure, sure], -1)[~near]
+    return sure, near, cand
+
+
+def host_density_map(p, axes, span, nx: int, ny: int, tol: float = 1e-5):
+    """Count bounds `(lo, hi)` `[nx, ny]` of one frame's 2-D density map:
+    bin = floor((x - x0) / (x1 - x0) * nx) on the two plane axes, atoms
+    outside the span dropped."""
+    p = np.asarray(p, np.float64)
+    (x0, x1), (y0, y1) = span
+    su, nu, cu = _edge_bins(p[:, axes[0]], x0, (x1 - x0) / nx, nx, tol)
+    sv, nv, cv = _edge_bins(p[:, axes[1]], y0, (y1 - y0) / ny, ny, tol)
+    ok = (su >= 0) & (sv >= 0)
+    lo = np.zeros((nx, ny), np.int64)
+    np.add.at(lo, (su[ok], sv[ok]), 1)
+    hi = lo.copy()
+    amb = np.nonzero((nu | nv) & ~ok)[0]
+    for i, j in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        u, v = cu[amb, i], cv[amb, j]
+        keep = (u >= 0) & (u < nx) & (v >= 0) & (v < ny)
+        # a sure axis repeats its bin: count each cell once per atom
+        keep &= (i == 0) | nu[amb]
+        keep &= (j == 0) | nv[amb]
+        np.add.at(hi, (u[keep], v[keep]), 1)
+    return lo, hi
+
+
+def host_in_shape(p, box, shape, tol: float = 1e-5):
+    """Count bounds `(lo, hi)` of one frame's atoms inside a shape with
+    the shapes' PBC semantics (Sphere, Rectangular or Cylinder, any
+    object with their attributes).  Along an oriented axis the distance
+    from the anchor folds into [0, L), so an atom within `tol` of the
+    anchor plane is also undecided."""
+    p = np.asarray(p, np.float64)
+    box = np.asarray(box, np.float64)
+    d = _mi(p - np.asarray(shape.position, np.float64), box)
+    fold = np.where(d < 0, d + box, d)
+    kind = type(shape).__name__
+    if kind == "Sphere":
+        margin = shape.radius - np.sqrt((d * d).sum(-1))
+        folded = []
+    elif kind == "Rectangular":
+        margin = np.min(np.asarray([shape.x, shape.y, shape.z]) - fold, axis=-1)
+        folded = [0, 1, 2]
+    else:
+        ax = {"X": 0, "Y": 1, "Z": 2}[shape.orientation.name]
+        plane = [a for a in range(3) if a != ax]
+        radial = shape.radius - np.sqrt((d[:, plane] ** 2).sum(-1))
+        margin = np.minimum(shape.height - fold[:, ax], radial)
+        folded = [ax]
+    undecided = (np.abs(d[:, folded]) < tol).any(-1)
+    return (int(((margin >= tol) & ~undecided).sum()),
+            int(((margin > -tol) | undecided).sum()))
+
+
+def host_pair_histogram(a, b, box, r_max: float, n_bins: int,
+                        exclude_self: bool = False, tol: float = 1e-5,
+                        chunk: int = 16):
+    """Count bounds `(lo, hi)` `[n_bins]` of one frame's pair-distance
+    histogram: bin k holds the minimum-image distances in
+    (k dr, (k+1) dr], dr = r_max / n_bins; `exclude_self` drops i == j."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    box = np.asarray(box, np.float64)
+    dr = r_max / n_bins
+    lo = np.zeros(n_bins + 1, np.int64)
+    hi = np.zeros(n_bins + 1, np.int64)
+    for i0 in range(0, a.shape[0], chunk):
+        d = _mi(a[i0:i0 + chunk, None, :] - b[None, :, :], box)
+        d = np.sqrt((d * d).sum(-1))
+        if exclude_self:
+            r = np.arange(i0, i0 + d.shape[0])
+            d[r - i0, r] = np.inf
+        d = d[d <= r_max + tol]
+        sure, near, cand = _edge_bins(d, 0.0, dr, n_bins, tol)
+        np.add.at(lo, np.where(sure >= 0, sure, n_bins), 1)
+        for k in (0, 1):
+            c = cand[near, k]
+            np.add.at(hi, np.where((c >= 0) & (c < n_bins), c, n_bins), 1)
+    return lo[:n_bins], lo[:n_bins] + hi[:n_bins]
+
+
+# ------------------------------------- the observables pass and its checks
+
+
+def cylinder_args(box):
+    """(position, radius, height) of the in-shape cylinder: z-oriented
+    through the box centre, from 10% to 80% of the box height."""
+    box = np.asarray(box, np.float64)
+    return ([box[0] / 2, box[1] / 2, 0.1 * box[2]], 0.2 * min(box[0], box[1]),
+            0.7 * box[2])
+
+
+def add_observables(pipe, state, cylinder):
+    """Configure the full-width observables pass on a `TrajectoryAnalysis`
+    of either package (they share the API) over a `synthetic_state(...,
+    topology="full")` system; `cylinder` is that package's Cylinder made
+    from `cylinder_args`."""
+    sites = state["sites"]
+    return (pipe.add_gyration("Protein", components=True, name="gyration")
+            .add_density_map("Membrane", "xy", tile=0.1, name="density_map")
+            .add_density_profile("Water", "z", 200, mode="mass",
+                                 name="profile_mass")
+            .add_density_profile("Water", "z", 200, mode="charge",
+                                 name="profile_charge")
+            .add_rdf("Peptide", "Membrane", r_max=2.0, n_bins=200, name="rdf")
+            .add_dipole("Protein", name="dipole")
+            .add_box_volume()
+            .add_box_lengths()
+            .add_total_dipole("Water", name="total_dipole")
+            .add_order("Membrane", axis="z", name="order")
+            .add_angles(sites["water_angles"], name="angles")
+            .add_dihedrals(sites["lipid_dihedrals"], name="dihedrals")
+            .add_principal("Protein", name="principal")
+            .add_in_shape("Water", cylinder, name="in_shape"))
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def undefined_sites(coords, n_atoms: int) -> dict:
+    """Per-frame masks of the `add_observables` items whose value is
+    undefined (NaN by the formula) in decoded `coords` [F, N, 3]:
+    dihedrals whose central bond has zero length, order parameters of a
+    hydrogen on top of its heavy atom.  Quantized coordinates make such
+    coincidences rare but real at 1M atoms."""
+    lay = synthetic_layout(n_atoms)
+    quad, hyd = lay["lipid_dihedrals"], lay["lipid_hydrogens"]
+    return {"dihedrals": (coords[:, quad[:, 1]] == coords[:, quad[:, 2]]).all(-1),
+            "order": (coords[:, hyd - 1] == coords[:, hyd]).all(-1)}
+
+
+def _nan_gap(got, want) -> float:
+    """Max |got - want| over the oracle's defined entries; inf when the
+    undefined (NaN) entries are not the same in both."""
+    undefined = ~np.isfinite(want)
+    if not np.array_equal(~np.isfinite(got), undefined):
+        return np.inf
+    gap = np.asarray(got, np.float64)[~undefined] - want[~undefined]
+    return float(np.abs(gap).max()) if gap.size else 0.0
+
+
+def observable_errors(out, coords, boxes, state, cylinder) -> dict:
+    """Hold the first `len(coords)` frames of an `add_observables` pass
+    against the float64 oracles -> {check: (error, bound)}; a check
+    passes when error <= bound.  Relative errors are to the largest
+    |value| of the oracle's frame; counts are the number of items
+    outside the oracle's (lo, hi) bounds; dihedrals and order must be
+    NaN exactly where the oracle is (`undefined_sites`)."""
+    n = coords.shape[1]
+    lay = synthetic_layout(n)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    prot, wat = slice(0, n_prot), slice(w0, n)
+    mem = slice(n_prot, w0)
+    pep = slice(0, min(400, n_prot))
+    mass = np.asarray(state["mass"], np.float64)
+    q = np.asarray(state["charge"], np.float64)
+    hyd = lay["lipid_hydrogens"]
+    tri, quad = lay["water_angles"], lay["lipid_dihedrals"]
+    err = {k: 0.0 for k in (
+        "gyration", "dipole", "total_dipole", "principal", "profile_mass",
+        "profile_charge", "box_volume", "box_lengths", "angles", "dihedrals",
+        "order", "density_map", "in_shape", "rdf")}
+
+    def worst(key, e):
+        err[key] = max(err[key], e)
+
+    for f in range(coords.shape[0]):
+        p = np.asarray(coords[f], np.float32)
+        box = np.asarray(boxes[f], np.float32)
+        box64 = box.astype(np.float64)
+        worst("gyration", _rel(out["gyration"][f],
+                               host_gyration(p[prot], box, mass[prot], True)))
+        worst("dipole", _rel(out["dipole"][f],
+                             host_dipole(p[prot], box, q[prot], mass[prot])))
+        worst("total_dipole", _rel(out["total_dipole"][f], host_total_dipole(
+            p[wat], box, q[wat], (np.arange(w0, n) - w0) // 3)))
+        worst("principal", _rel(out["principal"][f],
+                                host_principal(p[prot], box, mass[prot])))
+        worst("profile_mass", _rel(out["profile_mass"][f], host_density_profile(
+            p[wat], box, 2, 200, mass[wat], 1.66053906660)))
+        worst("profile_charge", _rel(out["profile_charge"][f],
+                                     host_density_profile(p[wat], box, 2, 200,
+                                                          q[wat])))
+        worst("box_volume", float(out["box_volume"][f] != np.float32(
+            np.prod(box64))))
+        worst("box_lengths", float(np.abs(out["box_lengths"][f] - box).max()))
+        pb = p[None]
+        want = angles_host_f64(pb[:, tri[:, 0]], pb[:, tri[:, 1]],
+                               pb[:, tri[:, 2]], box64[None])[0]
+        worst("angles", float(np.abs(out["angles"][f] - want).max()))
+        want = dihedrals_host_f64(*(pb[:, quad[:, k]] for k in range(4)),
+                                  box64[None])[0]
+        got = out["dihedrals"][f]
+        wrap = np.round((got - want) / 360.0) * 360.0
+        worst("dihedrals", _nan_gap(got - np.nan_to_num(wrap), want))
+        with np.errstate(invalid="ignore"):
+            want = host_order(p[hyd - 1], p[hyd], box, [0.0, 0.0, 1.0])
+        worst("order", _nan_gap(out["order"][f], want))
+        lo, hi = host_density_map(p[mem], (0, 1), ((0.0, box64[0]),
+                                                  (0.0, box64[1])),
+                                  int(round(box64[0] / 0.1)),
+                                  int(round(box64[1] / 0.1)))
+        got = out["density_map"][f]
+        worst("density_map", float(((got < lo) | (got > hi)).sum()))
+        lo, hi = host_in_shape(p[wat], box, cylinder)
+        worst("in_shape", float(not lo <= out["in_shape"][f] <= hi))
+        lo, hi = host_pair_histogram(p[pep], p[mem], box, 2.0, 200)
+        edges = np.arange(201) * (2.0 / 200)
+        n_pairs = (pep.stop - pep.start) * (w0 - n_prot)
+        ideal = n_pairs * 4.0 / 3.0 * np.pi * np.diff(edges ** 3) / np.prod(box64)
+        counts = np.rint(out["rdf"][f].astype(np.float64) * ideal)
+        worst("rdf", float(((counts < lo) | (counts > hi)).sum()))
+    bounds = {"gyration": 1e-4, "dipole": 1e-4, "total_dipole": 1e-4,
+              "principal": 1e-3, "profile_mass": 1e-4, "profile_charge": 1e-4,
+              "box_volume": 0.0, "box_lengths": 0.0, "angles": 2e-2,
+              "dihedrals": 2e-2, "order": 3e-4, "density_map": 0.0,
+              "in_shape": 0.0, "rdf": 0.0}
+    return {k: (err[k], bounds[k]) for k in err}

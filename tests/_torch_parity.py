@@ -13,9 +13,11 @@ torch.set_num_threads(1)
 
 def jax_system(state: dict):
     """A `groan_rs_tpu` System built from a port state dict (as
-    `bench.py:160-179` builds its System: masses + range groups)."""
+    `bench.py:160-179` builds its System: masses and groups), with the
+    optional charges, bonds, element symbols and atom names set through
+    the JAX `Topology`'s own columns and setters."""
     from groan_rs_tpu.core.simbox import SimBox
-    from groan_rs_tpu.core.topology import Topology
+    from groan_rs_tpu.core.topology import StrColumn, Topology
     from groan_rs_tpu.system import System
 
     pos = np.asarray(state["positions"], np.float32)
@@ -25,25 +27,51 @@ def jax_system(state: dict):
     topo.has_mass = np.asarray(state["has_mass"], bool).copy()
     topo.atomnum = np.arange(1, n + 1, dtype=np.int64)
     topo.resnum = np.arange(n, dtype=np.int64) // 3 + 1
+    if state.get("charge") is not None:
+        topo.charge = np.asarray(state["charge"], np.float32).copy()
+        topo.has_charge = np.asarray(state["has_charge"], bool).copy()
+    if state.get("element") is not None:
+        topo.element_symbol = StrColumn(values=np.asarray(state["element"], str))
+    if state.get("atomname") is not None:
+        topo.atomname = StrColumn(values=np.asarray(state["atomname"], str))
+    if state.get("bonds") is not None:
+        topo.set_bonds_from_pairs(np.asarray(state["bonds"], np.int64))
     box = np.asarray(state["box"], np.float32)
     s = System(state.get("name", "system"), topo,
                simbox=SimBox.from_lengths(*map(float, box)), positions=pos)
     s.set_precision(int(state["precision"]))
     for name, idx in state["groups"].items():
         idx = np.asarray(idx)
-        s.group_create_from_ranges(name, [(int(idx[0]), int(idx[-1]))])
+        if idx.shape[0] and idx[-1] - idx[0] == idx.shape[0] - 1:
+            s.group_create_from_ranges(name, [(int(idx[0]), int(idx[-1]))])
+        else:
+            s.group_create_from_indices(name, idx)
     return s
+
+
+def _strs(col):
+    """A JAX `StrColumn` as a per-atom str array (None when it was never
+    set: no categories)."""
+    return np.asarray(col.values(), str) if len(col.categories) else None
 
 
 def state_from_jax_system(system, groups) -> dict:
     """The state dict (`groan_rs_tpu_torch.convert`) of a `groan_rs_tpu`
-    System, carrying the named groups."""
+    System, carrying the named groups, charges, bonds, element symbols
+    and atom names."""
+    topo = system.topology
+    pairs = [(i, j) for i, nb in enumerate(topo.bonded) for j in nb if i <= j]
     return {
         "name": system.name,
         "positions": np.asarray(system.positions, np.float32),
         "box": np.asarray(system.get_box().to_lengths_vec(), np.float32),
-        "mass": np.asarray(system.topology.mass, np.float32),
-        "has_mass": np.asarray(system.topology.has_mass, bool),
+        "mass": np.asarray(topo.mass, np.float32),
+        "has_mass": np.asarray(topo.has_mass, bool),
+        "charge": np.asarray(topo.charge, np.float32),
+        "has_charge": np.asarray(topo.has_charge, bool),
+        "bonds": np.asarray(pairs, np.int64).reshape(-1, 2),
+        "element": _strs(topo.element_symbol),
+        "atomname": _strs(topo.atomname),
         "precision": int(system.precision),
         "groups": {g: np.asarray(system.group_indices(g)) for g in groups},
     }
