@@ -11,7 +11,14 @@ Phases, each of which raises on failure (the run then exits non-zero):
    codec, from the sources in this checkout.
 3. Kernels against their plain PyTorch twins on the card: K1/K2 (refined
    Bai-Breen centre) and K3 (tiled pair reduction) at the main path's
-   shapes and at ragged, masked, boundary and empty cases; times of both.
+   shapes and at ragged, masked, boundary and empty cases.  K3 bit for bit
+   (min bits and counts) at half-box ties (`testing.tie_quotients`,
+   `half_box_sets`, `half_box_lattice`), at N < M, N > M and N above the
+   staged tile for B = 1 and 100, and over five repeated calls.  K1 within
+   1e-4 at n = 1..300000 for B = 100, 1, 12 back to back (ticket reuse),
+   the same bits on an unaligned view as on its aligned copy and over
+   five calls, one launch per call.  Times of kernels and twins, with
+   and without an L2 flush, beside each kernel's bound.
 4. Main path, streamed: a synthetic 1,000,000-atom membrane-protein system
    (protein 99k, membrane 300k atoms) over SMOKE_FRAMES frames (default
    48), COM + COM distance + fitted RMSD + peptide-membrane min distance at
@@ -113,6 +120,29 @@ def timed(fn, reps):
     return (dev if dev is not None else ev), ev
 
 
+def kernel_ms(fn, reps, names, flush=None):
+    """Device ms per call of the kernels whose names contain one of
+    `names` (torch.profiler), over `reps` calls after one warm-up; with
+    `flush`, a 100 MB buffer is read before every call, so the call finds
+    its inputs outside the 50 MB L2 (a read leaves the L2 clean: a write
+    would make the timed call pay for writing the flush buffer back).
+    None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(us for k, us, _ in _device_events(prof)
+                if any(nm in k for nm in names))
+    return total / 1e3 / reps if total > 0 else None
+
+
 def max_err(x, y):
     """Max |x - y|; NaNs must sit at the same places (empty selections)."""
     import torch
@@ -123,6 +153,205 @@ def max_err(x, y):
         return float("inf")
     return float((x[~nan] - y[~nan]).abs().max()) if (~nan).any() else 0.0
 
+
+# Rooflines of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and FP32
+# instructions/s outside the tensor cores -- the 67 TFLOP/s float32 peak
+# counts an FMA as two, and none of these kernels' arithmetic can fuse.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12 / 2
+# K3's least exact work per pair: per axis sub, mul by 1/L, add 0.5,
+# round, mul by L, sub, square (21); two adds of the squares; min; compare.
+K3_OPS_PER_PAIR = 25
+# Device ms per call at the main shapes of the first CUDA kernels, before
+# K1 and K3 were redesigned (PERF.md's kernel table: NVIDIA H100 80GB
+# HBM3, 700.00 W).
+MS_BEFORE = {"bai_breen_estimate": 0.0552, "bai_breen_refine": 0.0304,
+             "pair_reduce": 3.6394}
+KERNEL_NAMES = {"bai_breen_estimate": ["estimate_kernel"],
+                "bai_breen_refine": ["refine_partials", "refine_finish"],
+                "pair_reduce": ["pair_reduce_kernel"]}
+
+
+def bound(nbytes, ops):
+    """(least ms for the work, "bytes" or "operations")."""
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k1_bound(b, n, weighted):
+    # read positions (+ weights) and boxes once, write the estimates; per
+    # coordinate wrap 4, angle 1, sin and cos 2, weighted sums 4; + sum w
+    return bound(b * n * 12 + (n * 4 if weighted else 0) + b * 24,
+                 b * n * (3 * 11 + 1))
+
+
+def k2_bound(b, n, weighted):
+    # positions (+ weights), boxes and estimates in, centres out; per
+    # coordinate unwrap 8, weighted sum 2; + sum w
+    return bound(b * n * 12 + (n * 4 if weighted else 0) + b * 36,
+                 b * n * (3 * 10 + 1))
+
+
+def k3_bound(b, n, m):
+    return bound((b * (n + m + 1) * 3) * 4 + b * 12,
+                 K3_OPS_PER_PAIR * b * n * m)
+
+
+def same_bits(x, y):
+    import torch
+
+    return x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+
+
+def k3_exact(K, a, b, boxes, cut, what):
+    """K3 against its twin: min bits and counts equal."""
+    dk, ck = K.pair_reduce(a, b, boxes, cut)
+    dp, cp = K.pair_reduce_plain(a, b, boxes, cut)
+    if not (same_bits(dk, dp) and bool((ck == cp).all())):
+        bad = ((dk.view(-1) != dp.view(-1)) | (ck.view(-1) != cp.view(-1))).nonzero()
+        i = int(bad[0]) if len(bad) else 0
+        raise AssertionError(
+            f"K3 {what}: frame {i} kernel ({float(dk.view(-1)[i])!r}, "
+            f"{int(ck.view(-1)[i])}) vs twin ({float(dp.view(-1)[i])!r}, "
+            f"{int(cp.view(-1)[i])})")
+    return dk, ck
+
+
+def k3_tie_checks(dev):
+    """K3 bit for bit against its twin at and near half-box ties: the tie
+    quotients one pair per frame (both staging roles), the half-box sets
+    at the cutoffs 0, L/2 and L/2 +- 1 ulp, and half-box lattices."""
+    import torch
+
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    f32 = np.float32
+    d, lens = testing.tie_quotients()
+    n_frames = 0
+    for L in testing.TIE_LENGTHS:
+        dd = torch.from_numpy(d[lens == f32(L)]).to(dev)
+        one = dd[:, None, None].expand(-1, 1, 3).contiguous()   # a - b = (d, d, d)
+        zero = torch.zeros_like(one)
+        boxes = torch.full((len(dd), 3), float(f32(L)), device=dev)
+        cut = float(f32(np.sqrt(3.0) * L / 2))
+        k3_exact(K, one, zero, boxes, cut, f"tie quotients L={L} (a staged)")
+        k3_exact(K, one.expand(-1, 2, 3).contiguous(), zero, boxes, cut,
+                 f"tie quotients L={L} (b staged)")
+        n_frames += len(dd)
+    check(True, f"K3 tie quotients: {n_frames} one-pair frames, both staging "
+          "roles, min bits and counts equal the twin's")
+    cases = 0
+    for n_axes in (1, 2, 3):
+        for L in (5.0, 20.5, 7.3):
+            a, b, box, half = testing.half_box_sets(n_axes, L)
+            for cut in (f32(0.0), half, np.nextafter(half, f32(0)),
+                        np.nextafter(half, f32(np.inf))):
+                args = [torch.from_numpy(x).to(dev)[None] for x in (a, b, box)]
+                k3_exact(K, *args, float(cut), f"half-box set {n_axes} axes L={L}")
+                k3_exact(K, args[1], args[0], args[2], float(cut),
+                         f"half-box set {n_axes} axes L={L}, roles swapped")
+                cases += 2
+    for L in testing.TIE_LENGTHS:
+        a, b, box, h = testing.half_box_lattice(L)
+        args = [torch.from_numpy(x).to(dev)[None] for x in (a, b, box)]
+        k3_exact(K, *args, float(np.nextafter(h, f32(np.inf))), f"lattice L={L}")
+        cases += 1
+    check(True, f"K3 half-box sets and lattices: {cases} cases bit for bit")
+
+
+def k3_role_checks(dev, uniform):
+    """K3 bit for bit at N < M, N > M and N above the staged tile, at
+    B = 1 and 100, and at B = 65535, with boxes whose 1/L is not exact."""
+    import torch
+
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    for n, m in ((5000, 300), (300000, 400), (4096, 4096)):
+        for b in (1, 100):
+            boxes = torch.tensor([[7.3, 20.5, 3.0]], device=dev).expand(b, 3).contiguous()
+            a = uniform(b, n, 3, lo=-0.5, hi=1.5) * boxes[:, None, :]
+            bb = uniform(b, m, 3, lo=-0.5, hi=1.5) * boxes[:, None, :]
+            _, ck = k3_exact(K, a, bb, boxes, 0.5, f"{b} x {n} x {m}")
+            check(True, f"K3 B={b} {n} x {m}: min bits and counts equal the "
+                  f"twin's ({int(ck.sum())} contacts)")
+            del a, bb
+            torch.cuda.empty_cache()
+    boxes = torch.tensor([[7.3, 20.5, 3.0]], device=dev).expand(65535, 3).contiguous()
+    _, ck = k3_exact(K, uniform(65535, 1, 3, lo=-0.5, hi=1.5) * boxes[:, None, :],
+                     uniform(65535, 2, 3, lo=-0.5, hi=1.5) * boxes[:, None, :],
+                     boxes, 2.0, "65535 frames of 1 x 2")
+    check(True, f"K3 B=65535 1 x 2: min bits and counts equal the twin's "
+          f"({int(ck.sum())} contacts)")
+
+
+def k1_checks(dev, uniform):
+    """K1 against its twin (1e-4) on clustered frames, at odd sizes, a view
+    that starts at an odd atom, B = 1 / 12 / 100 back to back; repeated
+    calls and the unaligned view give identical bits; one launch a call."""
+    import torch
+
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    def clustered(b, n, box):
+        ctr = uniform(b, 1, 3) * box
+        return (ctr + torch.randn(b, n, 3, generator=gen).to(dev) * 0.12 * box
+                + uniform(b, n, 3, lo=-0.02, hi=0.02) * box)
+
+    gen = torch.Generator().manual_seed(1)
+    box = torch.tensor([21.0, 21.0, 20.5], device=dev)
+    box12 = box.expand(12, 3).contiguous()
+    first = {}
+    worst = 0.0
+    for n in (1, 2047, 2048, 2049, 99000, 300000):
+        for b in (100, 1, 12):  # back to back: the tickets are reused
+            boxes = box.expand(b, 3).contiguous()
+            pos = clustered(b, n, box)
+            w = uniform(n, lo=1.0, hi=16.0)
+            w[::7] = 0.0
+            for wt in (None, w):
+                est = K.bai_breen_estimate(pos, wt, boxes)
+                e = max_err(est, K.bai_breen_estimate_plain(pos, wt, boxes))
+                worst = max(worst, e)
+                if e >= 1e-4:
+                    raise AssertionError(f"K1 n={n} B={b}: {e:.3e} from the twin")
+                if b == 12 and wt is None:
+                    first[n] = (pos, est)
+    check(True, f"K1 within 1e-4 of its twin at n = 1..300000, B = 100, 1, 12 "
+          f"back to back, with and without weights (max {worst:.2e})")
+    for n, (pos, est) in first.items():  # after every other B ran
+        check(same_bits(K.bai_breen_estimate(pos, None, box12), est),
+              f"K1 n={n}: the same bits after calls at other B")
+    pos, est = first[300000]
+    check(all(same_bits(K.bai_breen_estimate(pos, None, box12), est)
+              for _ in range(5)), "K1 [12, 300000, 3]: five calls, identical bits")
+    wide = clustered(12, 300001, box)
+    view = wide[:, 1:]  # starts at atom 1: 12 bytes past a 16-byte boundary
+    check(view.data_ptr() % 16 != 0, "the slice view is not 16-byte aligned")
+    ev = K.bai_breen_estimate(view, None, box12)
+    check(same_bits(ev, K.bai_breen_estimate(view.contiguous(), None, box12)),
+          "K1 reads the unaligned view in place with the aligned copy's bits")
+    e = max_err(ev, K.bai_breen_estimate_plain(view.contiguous(), None, box12))
+    check(e < 1e-4, f"K1 unaligned view within 1e-4 of its twin ({e:.2e})")
+    from torch.profiler import ProfilerActivity, profile
+
+    launched = {}
+    for _ in range(3):  # the profiler now and then returns no device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                K.bai_breen_estimate(pos, None, box12)
+            torch.cuda.synchronize()
+        launched = {k: c for k, _, c in _device_events(prof)}
+        if launched:
+            break
+    if launched:
+        check(list(launched.values()) == [3] and "estimate_kernel" in next(iter(launched)),
+              f"K1 is one CUDA launch per call (3 calls: {launched})")
+    else:
+        say("  K1 launches per call: not measured (the profiler shows no device events)")
+    return worst
 
 def kernel_checks(dev):
     """Phase 3 -> {kernel name: record} for the JSON line."""
@@ -143,6 +372,7 @@ def kernel_checks(dev):
     boxes = torch.full((BATCH, 3), box_len, device=dev)
     boxes[:, 2] = 20.5  # unequal axes
     rec = {}
+    flush = torch.zeros(25 * 2 ** 20, device=dev)  # 100 MB: twice the L2
 
     # ---- K1 / K2 at the main path's shapes (tolerance 2e-3) ----------
     shapes = {f"protein [{BATCH}, {n_prot}, 3] masses":
@@ -171,8 +401,18 @@ def kernel_checks(dev):
             f"per call by events), twin {k1_plain:.4f} ms device ({k1p_ev:.4f})")
         say(f"  K2 {label}: kernel {k2_ms:.4f} ms device ({k2_ev:.4f} ms "
             f"per call by events), twin {k2_plain:.4f} ms device ({k2p_ev:.4f})")
-        rec["bai_breen_estimate"] = dict(ms=k1_ms, plain_ms=k1_plain, shape=label)
-        rec["bai_breen_refine"] = dict(ms=k2_ms, plain_ms=k2_plain, shape=label)
+        k1_fl = kernel_ms(lambda: K.bai_breen_estimate(pos, w, boxes), 50,
+                          KERNEL_NAMES["bai_breen_estimate"], flush)
+        k2_fl = kernel_ms(lambda: K.bai_breen_refine(pos, w, boxes, est), 50,
+                          KERNEL_NAMES["bai_breen_refine"], flush)
+        say(f"  K1 {label}: kernel {k1_fl} ms device with the L2 flushed; "
+            f"K2 {k2_fl} ms")
+        rec["bai_breen_estimate"] = dict(
+            ms=k1_ms, plain_ms=k1_plain, shape=label, ms_l2_flushed=k1_fl,
+            bound=k1_bound(BATCH, n, w is not None))
+        rec["bai_breen_refine"] = dict(
+            ms=k2_ms, plain_ms=k2_plain, shape=label, ms_l2_flushed=k2_fl,
+            bound=k2_bound(BATCH, n, w is not None))
 
     # ---- K1 / K2 small cases (tolerances 1e-4 / 2e-4) ----------------
     for n in (1, 300, 2049, 5000):
@@ -196,6 +436,7 @@ def kernel_checks(dev):
                 K.bai_breen_center_plain(view.contiguous(), None,
                                          torch.full((2, 3), 5.0, device=dev)))
     check(e < 2e-4, f"K1/K2 read a slice view in place ({e:.1e})")
+    k1_checks(dev, uniform)
 
     # ---- K3 small cases: exact counts, min within 1e-6 ---------------
     bx3 = torch.tensor([[5.0, 6.0, 7.0]] * 2, device=dev)
@@ -212,6 +453,8 @@ def kernel_checks(dev):
     dk, _ = K.pair_reduce(a, b, bx3[:1], 0.0)
     check(abs(float(dk[0]) - float(np.sqrt(3 * 0.1 ** 2))) < 1e-5,
           "K3 pair across the periodic boundary")
+    k3_tie_checks(dev)
+    k3_role_checks(dev, uniform)
 
     # ---- K3 at the main path's shape: peptide x membrane x 12 frames ---
     pep = uniform(BATCH, n_pep, 3, lo=8.0, hi=13.0)
@@ -224,11 +467,26 @@ def kernel_checks(dev):
         f"{ck.tolist()} vs {cp.tolist()}")
     check(e3 < 2e-3 and bool((ck == cp).all()),
           "K3 agrees with its twin at the main path's shape")
+    check(same_bits(dk, dp), "K3 min bits equal the twin's at the main path's shape")
+    check(all(same_bits(K.pair_reduce(pep, mem, boxes, 0.5)[0], dk)
+              and bool((K.pair_reduce(pep, mem, boxes, 0.5)[1] == ck).all())
+              for _ in range(5)), "K3 at the main shape: five calls, identical bits")
     k3_ms, k3_ev = timed(lambda: K.pair_reduce(pep, mem, boxes, 0.5), 20)
     k3_plain, k3p_ev = timed(lambda: K.pair_reduce_plain(pep, mem, boxes, 0.5), 3)
+    k3_fl = kernel_ms(lambda: K.pair_reduce(pep, mem, boxes, 0.5), 20,
+                      KERNEL_NAMES["pair_reduce"], flush)
     say(f"  K3: kernel {k3_ms:.4f} ms device ({k3_ev:.4f} ms per call by "
-        f"events), twin {k3_plain:.4f} ms device ({k3p_ev:.4f})")
-    rec["pair_reduce"] = dict(ms=k3_ms, plain_ms=k3_plain, shape=k3_shape)
+        f"events; {k3_fl} ms with the L2 flushed), twin {k3_plain:.4f} ms "
+        f"device ({k3p_ev:.4f})")
+    rec["pair_reduce"] = dict(ms=k3_ms, plain_ms=k3_plain, shape=k3_shape,
+                              ms_l2_flushed=k3_fl,
+                              bound=k3_bound(BATCH, n_pep, n_mem))
+    del flush
+    for k, r in rec.items():
+        say(f"  {k}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"{100 * r['bound'][0] / r['ms']:.1f}% of it at {r['ms']:.4f} ms, "
+            f"{100 * r['bound'][0] / (r['ms_l2_flushed'] or float('inf')):.1f}% "
+            f"with the L2 flushed; first port: {MS_BEFORE[k]} ms")
     rec["bai_breen_estimate"]["max_abs_err"] = k1_err
     rec["bai_breen_refine"]["max_abs_err"] = k2_err
     rec["pair_reduce"]["max_abs_err"] = e3
@@ -530,10 +788,20 @@ def main():
                                 "groan_rs_tpu/ops/pallas_kernels.py:250"),
            "pair_reduce": ("groan_rs_tpu_torch/csrc/pair_reduce.cu",
                            "groan_rs_tpu/ops/pallas_kernels.py:27")}
+    # no single PyTorch call computes any of the three functions
+    no_library = {
+        "bai_breen_estimate": "a circular mean of wrapped angles, then atan2",
+        "bai_breen_refine": "a mean of positions unwrapped around an estimate",
+        "pair_reduce": "per-axis minimum image (torch.cdist has none)"}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": counts[k], "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
+         "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
+         "pct_of_bound": 100 * rec[k]["bound"][0] / rec[k]["ms"],
+         "ms_l2_flushed": rec[k]["ms_l2_flushed"],
+         "ms_before": MS_BEFORE[k], "ms_before_from": "PERF.md kernel table, first port",
+         "library_ms": None, "library_none": no_library[k],
          "shape": rec[k]["shape"], "observables_launches": obs_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ This package imports torch and numpy only — never jax, never
 `groan_rs_tpu` — so it runs on a GPU host without JAX installed.
 
     from groan_rs_tpu_torch.models import TrajectoryAnalysis
-    out = (TrajectoryAnalysis(system, device="cuda")
+    out = (TrajectoryAnalysis(system)
            .add_com("Protein")
            .add_distance("Protein", "Membrane", com=(True, False))
            .add_rmsd("Protein", reference=system)

@@ -5,7 +5,7 @@ Port of `groan_rs_tpu/models/pipeline.py` (`_Idx` :38-75,
 `runner` / `PipelineRunner` :1057-1300, `run_many` :1488-1544) for
 orthorhombic boxes:
 
-    pipe = (TrajectoryAnalysis(system, device="cuda")
+    pipe = (TrajectoryAnalysis(system)
             .add_com("Protein")
             .add_distance("Protein", "Membrane", com=(True, False))
             .add_rmsd("Protein", reference=system)
@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backend import as_device
+from ..backend import as_device, require_cuda
 from ..core.dimension import Dimension
 from ..core.simbox import simbox_check
 from ..errors import GroupError, ParallelError, RMSDError, SimBoxError
@@ -154,14 +154,16 @@ def _extract_reference(reference, group: str):
 
 
 class TrajectoryAnalysis:
-    def __init__(self, system, *, device, triclinic: bool = False, mesh=None):
-        """`device`: where the pass runs ("cuda", "cuda:1" or "cpu")."""
+    def __init__(self, system, *, device=None, triclinic: bool = False,
+                 mesh=None):
+        """`device`: where the pass runs ("cuda", "cuda:1" or "cpu"); the
+        default is the current CUDA card, and raises where there is none."""
         if triclinic:
             raise ParallelError(f"triclinic=True is {_LATER}")
         if mesh is not None:
             raise ParallelError(f"meshes are {_LATER}")
         self.system = system
-        self.device = as_device(device)
+        self.device = require_cuda() if device is None else as_device(device)
         self._specs = []  # (name, fn(positions, boxes) -> tensor)
         self._handles: list[_Idx] = []
 

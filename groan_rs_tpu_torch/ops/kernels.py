@@ -114,15 +114,14 @@ def _load():
             lib.gk_bb_atoms_per_block.restype = i32
             lib.gk_bb_atoms_per_block.argtypes = []
             lib.gk_bb_estimate.restype = i32
-            lib.gk_bb_estimate.argtypes = [vp, ll, i32, vp, vp, vp, vp, i32, vp]
+            lib.gk_bb_estimate.argtypes = [vp, ll, i32, vp, vp, vp, vp, vp,
+                                           i32, vp]
             lib.gk_bb_refine.restype = i32
             lib.gk_bb_refine.argtypes = [vp, ll, i32, vp, vp, vp, vp, vp, i32,
                                          vp]
             lib.gk_pair_reduce.restype = i32
             lib.gk_pair_reduce.argtypes = [vp, ll, i32, vp, ll, i32, vp, f32,
                                            vp, vp, i32, vp]
-            lib.gk_pair_max_m.restype = ll
-            lib.gk_pair_max_m.argtypes = []
             _lib = lib
     return _lib
 
@@ -206,6 +205,23 @@ def _squeeze_like(out: torch.Tensor, pos_in: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- K1: estimate
 
 
+_ticket_bufs: dict = {}  # device -> uint32 tickets of K1's fused finish
+
+
+def _tickets(device, n_frames: int) -> torch.Tensor:
+    """K1's per-frame tickets on `device`, at least `n_frames` long.
+
+    Every launch leaves them all 0 (the last block of a frame resets its
+    ticket), so the buffer is zeroed once, when it is made or grown.  One
+    buffer per device: launches that share it must not overlap, which holds
+    because every kernel of the port goes to the current stream in turn."""
+    buf = _ticket_bufs.get(device)
+    if buf is None or buf.numel() < n_frames:
+        buf = torch.zeros(max(n_frames, 64), dtype=torch.int32, device=device)
+        _ticket_bufs[device] = buf
+    return buf
+
+
 def bai_breen_estimate_plain(pos, weights, boxes):
     """Twin of K1 over [B, N, 3] frames, [N] weights (None = ones) and
     [B, 3] boxes -> [B, 3] circular-mean estimates (NaN when empty)."""
@@ -246,7 +262,8 @@ def bai_breen_estimate(positions, weights, box):
     est = torch.empty((b, 3), dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         rc = lib.gk_bb_estimate(_ptr(pos), pos.stride(0), n, _ptr(w),
-                                _ptr(boxes), _ptr(partials), _ptr(est), b,
+                                _ptr(boxes), _ptr(partials),
+                                _ptr(_tickets(pos.device, b)), _ptr(est), b,
                                 _stream(pos.device))
     _check_rc(rc, "bai_breen_estimate")
     launch_counts["bai_breen_estimate"] += 1
@@ -358,9 +375,6 @@ def pair_reduce(a, b, box, cutoff: float):
         dmin, cnt = pair_reduce_plain(pa, pb, boxes, cutoff)
     else:
         lib = _load()
-        if m > lib.gk_pair_max_m() or nb > 65535:
-            raise ValueError(f"pair_reduce: {nb} frames x {m} b atoms exceed "
-                             "one launch's grid")
         bits = torch.full((nb,), 0x7F800000, dtype=torch.int32, device=pa.device)
         cnt = torch.zeros(nb, dtype=torch.int64, device=pa.device)
         with torch.cuda.device(pa.device):

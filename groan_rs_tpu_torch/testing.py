@@ -602,3 +602,59 @@ def observable_errors(out, coords, boxes, state, cylinder) -> dict:
               "dihedrals": 2e-2, "order": 3e-4, "density_map": 0.0,
               "in_shape": 0.0, "rdf": 0.0}
     return {k: (err[k], bounds[k]) for k in err}
+
+
+# ---------------------------------------------------------------- K3 tie sets
+# Inputs at and near half-box separations, where floor(d / L + 0.5) and a
+# k taken from the reciprocal 1/L can differ by one.  Shared by the CPU
+# tests and the card's checks (chip_smoke.py phase 3).
+
+TIE_LENGTHS = (1.0, 3.0, 7.3, 20.5, 21.0, 97.3)
+
+
+def tie_quotients():
+    """(d, L) float32: d = +-(k + 1/2) L and +-1..+-16 ulps around it for
+    k in -4..4, plus quotients near and past 2^17..2^23, per L in
+    TIE_LENGTHS."""
+    f32 = np.float32
+    ds, lens = [], []
+    steps = np.arange(-16, 17, dtype=np.int32)
+    quotients = [k + 0.5 for k in range(-4, 5)] + [
+        2.0 ** 17 + 0.5, 2.0 ** 18 - 0.5, 2.0 ** 18 + 0.5, 2.0 ** 21 + 0.5,
+        2.0 ** 22 + 0.5, 2.0 ** 23, 1e9]
+    for L in TIE_LENGTHS:
+        for q in quotients:
+            for sign in (1.0, -1.0):
+                d0 = f32(sign * q * f32(L))
+                bits = np.full(steps.shape, d0, f32).view(np.int32) + steps
+                ds.append(bits.view(f32))
+                lens.append(np.full(steps.shape, L, f32))
+    return np.concatenate(ds), np.concatenate(lens)
+
+
+def half_box_sets(n_axes: int, L: float):
+    """(a [128, 3], b [64, 3], box [3], L/2) float32: a[:64] sit exactly
+    (k + 1/2) L from b on the first `n_axes` axes (0 on the others; exact
+    for dyadic L), coordinates span -2L..3L; a[64:] are free atoms."""
+    rng = np.random.default_rng(n_axes)
+    box = np.full(3, L, np.float32)
+    half = np.float32(L) / np.float32(2)
+    # a 1/16 grid keeps b + L/2 + k L exact for dyadic box lengths
+    b = (np.round(rng.uniform(-2 * L, 2.5 * L, (64, 3)) * 16) / 16).astype(np.float32)
+    shift = np.zeros((64, 3), np.float32)
+    shift[:, :n_axes] = half + np.float32(L) * rng.integers(-1, 1, (64, n_axes))
+    free = rng.random((64, 3)) * 5 * L - 2 * L
+    return np.concatenate([b + shift, free]).astype(np.float32), b, box, half
+
+
+def half_box_lattice(L: float):
+    """(a, b, box, L/2) float32: atoms on a lattice of half-box steps in
+    -2L..3L, b a subset of a plus copies three boxes away, so that many
+    pairs sit exactly (k + 1/2) L apart on one, two or three axes."""
+    f32 = np.float32
+    box = np.full(3, L, f32)
+    h = f32(L) / f32(2)
+    grid = np.arange(-4, 6, dtype=f32) * h
+    a = np.stack(np.meshgrid(grid, grid[:3], grid[:2]), -1).reshape(-1, 3)
+    b = np.concatenate([a[::7], a[::5] + f32(L) * 3])
+    return a, b, box, h

@@ -127,3 +127,48 @@ def test_slice_view_needs_no_copy():
     assert K._frames(view).data_ptr() == view.data_ptr()
     gathered = pos.index_select(1, torch.arange(0, 100, 2))
     assert K._frames(gathered).is_contiguous()
+
+
+def _k1_sincos(y):
+    """K1's `sincos_halfpi` (csrc/bai_breen.cu) in numpy float32: rint
+    reduction, the two polynomials with the coefficients that ship (read
+    from the source, FMA emulated in float64), then the quadrant."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(K.CSRC) / "bai_breen.cu").read_text()
+    body = src[src.index("void sincos_halfpi"):src.index("const int q = __float2int_rn")]
+    lits = [np.float32(x) for x in re.findall(r"(-?[0-9.]+(?:e-?[0-9]+)?)f", body)]
+    sin_c, cos_c = lits[:5], lits[5:10]
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(f32)
+
+    def poly(u, c):  # c: highest two first, then the rest in Horner order
+        acc = fma(u, c[0], c[1])
+        for k in c[2:]:
+            acc = fma(acc, u, k)
+        return acc
+
+    y = np.asarray(y, f32)
+    nn = np.rint(y).astype(f32)
+    v = (y - nn).astype(f32)
+    u = (v * v).astype(f32)
+    sv = (poly(u, sin_c) * v).astype(f32)
+    pc = poly(u, cos_c)
+    q = nn.astype(np.int64)
+    a = np.where(q & 1, pc, sv)
+    b = np.where(q & 1, sv, pc)
+    return np.where(q & 2, -a, a), np.where((q + 1) & 2, -b, b)
+
+
+def test_k1_sincos_matches_float64():
+    """The kernel's sine and cosine of (pi/2) y, for coordinates up to
+    four boxes from the origin on either side (y = 4x/L in -16..16),
+    within 2e-7 of float64: K1 needs no sincosf and no wrap."""
+    y = np.linspace(-16.0, 16.0, 400001).astype(np.float32)
+    s, c = _k1_sincos(y)
+    theta = np.pi / 2 * y.astype(np.float64)
+    assert np.abs(s - np.sin(theta)).max() < 2e-7
+    assert np.abs(c - np.cos(theta)).max() < 2e-7

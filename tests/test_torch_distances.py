@@ -12,6 +12,7 @@ from groan_rs_tpu.ops import distances as jdist
 from groan_rs_tpu.ops import pallas_kernels as pk
 
 from _torch_parity import n, t
+from groan_rs_tpu_torch import testing
 from groan_rs_tpu_torch.ops import distances as tdist
 from groan_rs_tpu_torch.ops import kernels as K
 
@@ -142,3 +143,21 @@ def test_same_route_rule():
     b = t(np.zeros((1, 4096, 3), np.float32))
     assert tdist._tiled_route(a, b, None, None) == jdist._tiled_route(
         n(a), n(b), None, None)
+
+
+@pytest.mark.parametrize("cut", ["zero", "half", "half-ulp", "half+ulp"])
+@pytest.mark.parametrize("L", [5.0, 20.5, 7.3])
+@pytest.mark.parametrize("n_axes", [1, 2, 3])
+def test_k3_twin_ties_match_pallas(n_axes, L, cut):
+    """Half-box separations: the twin rounds ties as the JAX kernel does
+    (min within 1e-6, counts exact at the cutoffs L/2 and L/2 +- 1 ulp)."""
+    a, b, box, half = testing.half_box_sets(n_axes, L)
+    if L != 7.3:  # dyadic: every tie pair is exactly (k + 1/2) L apart
+        gap = np.mod(a[:64] - b, box)[:, :n_axes]
+        assert (gap == half).all()
+    cutoff = {"zero": np.float32(0.0), "half": half,
+              "half-ulp": np.nextafter(half, np.float32(0)),
+              "half+ulp": np.nextafter(half, np.float32(np.inf))}[cut]
+    d, c = _twin(a, b, box, float(cutoff))
+    assert d == pytest.approx(float(pk.min_distance(a, b, box)), abs=1e-6)
+    assert c == int(pk.contact_count(a, b, box, float(cutoff)))

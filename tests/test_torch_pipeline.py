@@ -11,6 +11,7 @@ size, as they do at the 1M-atom main path."""
 
 import numpy as np
 import pytest
+import torch
 
 from groan_rs_tpu.models import TrajectoryAnalysis as JTA
 from groan_rs_tpu.ops import distances as jdist
@@ -155,3 +156,14 @@ def test_unported_features_raise(systems):
     for add in ("add_hbonds", "add_kinetic_energy", "add_temperature"):
         with pytest.raises(ParallelError, match="ROADMAP"):
             getattr(TTA(tsys, device="cpu"), add)("Protein")
+
+
+def test_default_device_is_the_card(systems, monkeypatch):
+    """TrajectoryAnalysis(system), the JAX package's signature, targets the
+    CUDA card: with no card it raises require_cuda's RuntimeError -- not a
+    TypeError, and no silent CPU run."""
+    _, _, tsys = systems
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TTA(tsys)
+    assert TTA(tsys, device="cpu").device == torch.device("cpu")
