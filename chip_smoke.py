@@ -17,14 +17,20 @@ Phases, each of which raises on failure (the run then exits non-zero):
    staged tile for B = 1 and 100, and over five repeated calls.  K1 within
    1e-4 at n = 1..300000 for B = 100, 1, 12 back to back (ticket reuse),
    the same bits on an unaligned view as on its aligned copy and over
-   five calls, one launch per call.  Times of kernels and twins, with
+   five calls; one CUDA launch per K1 call and two per K2 call, by the
+   library's own count.  Times of kernels and twins, with
    and without an L2 flush, beside each kernel's bound.
 4. Main path, streamed: a synthetic 1,000,000-atom membrane-protein system
    (protein 99k, membrane 300k atoms) over SMOKE_FRAMES frames (default
    48), COM + COM distance + fitted RMSD + peptide-membrane min distance at
    batch 12 over the q16 wire; checked against float64 host oracles.
 5. Device-resident re-run: load_device, then run_resident_fused and
-   run_resident, each equal to the streamed pass within 1e-6.
+   run_resident, each equal to the streamed pass within 1e-6.  Then, on
+   the parity frames, the COM-COG distance of the kernel path against
+   the twin path (the port's functions on CPU tensors): within 1e-4 plus
+   what atoms changing image between the two membrane estimates explain
+   (`testing.center_jump_bound`), and the distance from estimates rounded
+   as the twin, the twin without its wrap and the kernel round them.
 6. The K1, K2 and K3 launch counters rose during phases 4 and 5.
 7. The observables pass at full width: the same XTC over a System with
    the full synthetic topology (charges, bonds, elements), every atom
@@ -95,38 +101,14 @@ def _device_events(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(fn, reps):
-    """Device milliseconds per call: the summed device time of everything
-    `fn` launches, over `reps` calls (torch.profiler), after one warm-up
-    call; None when the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(us for _, us, _ in _device_events(prof))
-    return total / 1e3 / reps if total > 0 else None
-
-
-def timed(fn, reps):
-    """(device ms per call from the profiler, or from CUDA events when the
-    profiler shows no device time; CUDA-event ms per call)."""
-    ev = cuda_ms(fn, reps)
-    dev = device_ms(fn, reps)
-    return (dev if dev is not None else ev), ev
-
-
-def kernel_ms(fn, reps, names, flush=None):
-    """Device ms per call of the kernels whose names contain one of
-    `names` (torch.profiler), over `reps` calls after one warm-up; with
-    `flush`, a 100 MB buffer is read before every call, so the call finds
-    its inputs outside the 50 MB L2 (a read leaves the L2 clean: a write
-    would make the timed call pay for writing the flush buffer back).
-    None when the profiler records no device time."""
+def device_ms(fn, reps, names=None, flush=None):
+    """Device milliseconds per call (torch.profiler) over `reps` calls after
+    one warm-up call: the summed device time of what `fn` launches, or with
+    `names` of the kernels whose names contain one of them.  With `flush`,
+    a 100 MB buffer is read before every call, so the call finds its inputs
+    outside the 50 MB L2 (a read leaves the L2 clean: a write would make
+    the timed call pay for writing the flush buffer back).  None when the
+    profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,8 +121,17 @@ def kernel_ms(fn, reps, names, flush=None):
             fn()
         torch.cuda.synchronize()
     total = sum(us for k, us, _ in _device_events(prof)
-                if any(nm in k for nm in names))
+                if names is None or any(nm in k for nm in names))
     return total / 1e3 / reps if total > 0 else None
+
+
+def timed(fn, reps, names=None):
+    """(device ms per call from the profiler, of `names` as in `device_ms`,
+    or from CUDA events when the profiler shows no device time; CUDA-event
+    ms per call)."""
+    ev = cuda_ms(fn, reps)
+    dev = device_ms(fn, reps, names)
+    return (dev if dev is not None else ev), ev
 
 
 def max_err(x, y):
@@ -162,11 +153,6 @@ FP32_OPS_S = 67e12 / 2
 # K3's least exact work per pair: per axis sub, mul by 1/L, add 0.5,
 # round, mul by L, sub, square (21); two adds of the squares; min; compare.
 K3_OPS_PER_PAIR = 25
-# Device ms per call at the main shapes of the first CUDA kernels, before
-# K1 and K3 were redesigned (PERF.md's kernel table: NVIDIA H100 80GB
-# HBM3, 700.00 W).
-MS_BEFORE = {"bai_breen_estimate": 0.0552, "bai_breen_refine": 0.0304,
-             "pair_reduce": 3.6394}
 KERNEL_NAMES = {"bai_breen_estimate": ["estimate_kernel"],
                 "bai_breen_refine": ["refine_partials", "refine_finish"],
                 "pair_reduce": ["pair_reduce_kernel"]}
@@ -334,23 +320,17 @@ def k1_checks(dev, uniform):
           "K1 reads the unaligned view in place with the aligned copy's bits")
     e = max_err(ev, K.bai_breen_estimate_plain(view.contiguous(), None, box12))
     check(e < 1e-4, f"K1 unaligned view within 1e-4 of its twin ({e:.2e})")
-    from torch.profiler import ProfilerActivity, profile
-
-    launched = {}
-    for _ in range(3):  # the profiler now and then returns no device events
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                K.bai_breen_estimate(pos, None, box12)
-            torch.cuda.synchronize()
-        launched = {k: c for k, _, c in _device_events(prof)}
-        if launched:
-            break
-    if launched:
-        check(list(launched.values()) == [3] and "estimate_kernel" in next(iter(launched)),
-              f"K1 is one CUDA launch per call (3 calls: {launched})")
-    else:
-        say("  K1 launches per call: not measured (the profiler shows no device events)")
+    lib = K._load()
+    for fn, per_call, what in (
+            (lambda: K.bai_breen_estimate(pos, None, box12), 1, "K1"),
+            (lambda: K.bai_breen_refine(pos, None, box12, est), 2, "K2")):
+        n0 = lib.gk_bb_launches()
+        for _ in range(3):
+            fn()
+        made = lib.gk_bb_launches() - n0
+        check(made == 3 * per_call, f"{what} makes {per_call} CUDA launch"
+              f"{'es' if per_call > 1 else ''} per call (3 calls: {made}, "
+              "the library's own count of its <<<>>> launches)")
     return worst
 
 def kernel_checks(dev):
@@ -391,19 +371,21 @@ def kernel_checks(dev):
         say(f"  K2 {label}: max |kernel - twin| = {e2:.3e}")
         check(e1 < 2e-3 and e2 < 2e-3, f"K1/K2 agree with their twins at {label}")
         k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
-        k1_ms, k1_ev = timed(lambda: K.bai_breen_estimate(pos, w, boxes), 50)
+        k1_ms, k1_ev = timed(lambda: K.bai_breen_estimate(pos, w, boxes), 50,
+                             KERNEL_NAMES["bai_breen_estimate"])
         k1_plain, k1p_ev = timed(
             lambda: K.bai_breen_estimate_plain(pos, w, boxes), 10)
-        k2_ms, k2_ev = timed(lambda: K.bai_breen_refine(pos, w, boxes, est), 50)
+        k2_ms, k2_ev = timed(lambda: K.bai_breen_refine(pos, w, boxes, est), 50,
+                             KERNEL_NAMES["bai_breen_refine"])
         k2_plain, k2p_ev = timed(
             lambda: K.bai_breen_refine_plain(pos, w, boxes, est), 10)
         say(f"  K1 {label}: kernel {k1_ms:.4f} ms device ({k1_ev:.4f} ms "
             f"per call by events), twin {k1_plain:.4f} ms device ({k1p_ev:.4f})")
         say(f"  K2 {label}: kernel {k2_ms:.4f} ms device ({k2_ev:.4f} ms "
             f"per call by events), twin {k2_plain:.4f} ms device ({k2p_ev:.4f})")
-        k1_fl = kernel_ms(lambda: K.bai_breen_estimate(pos, w, boxes), 50,
+        k1_fl = device_ms(lambda: K.bai_breen_estimate(pos, w, boxes), 50,
                           KERNEL_NAMES["bai_breen_estimate"], flush)
-        k2_fl = kernel_ms(lambda: K.bai_breen_refine(pos, w, boxes, est), 50,
+        k2_fl = device_ms(lambda: K.bai_breen_refine(pos, w, boxes, est), 50,
                           KERNEL_NAMES["bai_breen_refine"], flush)
         say(f"  K1 {label}: kernel {k1_fl} ms device with the L2 flushed; "
             f"K2 {k2_fl} ms")
@@ -471,9 +453,10 @@ def kernel_checks(dev):
     check(all(same_bits(K.pair_reduce(pep, mem, boxes, 0.5)[0], dk)
               and bool((K.pair_reduce(pep, mem, boxes, 0.5)[1] == ck).all())
               for _ in range(5)), "K3 at the main shape: five calls, identical bits")
-    k3_ms, k3_ev = timed(lambda: K.pair_reduce(pep, mem, boxes, 0.5), 20)
+    k3_ms, k3_ev = timed(lambda: K.pair_reduce(pep, mem, boxes, 0.5), 20,
+                         KERNEL_NAMES["pair_reduce"])
     k3_plain, k3p_ev = timed(lambda: K.pair_reduce_plain(pep, mem, boxes, 0.5), 3)
-    k3_fl = kernel_ms(lambda: K.pair_reduce(pep, mem, boxes, 0.5), 20,
+    k3_fl = device_ms(lambda: K.pair_reduce(pep, mem, boxes, 0.5), 20,
                       KERNEL_NAMES["pair_reduce"], flush)
     say(f"  K3: kernel {k3_ms:.4f} ms device ({k3_ev:.4f} ms per call by "
         f"events; {k3_fl} ms with the L2 flushed), twin {k3_plain:.4f} ms "
@@ -486,11 +469,93 @@ def kernel_checks(dev):
         say(f"  {k}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
             f"{100 * r['bound'][0] / r['ms']:.1f}% of it at {r['ms']:.4f} ms, "
             f"{100 * r['bound'][0] / (r['ms_l2_flushed'] or float('inf')):.1f}% "
-            f"with the L2 flushed; first port: {MS_BEFORE[k]} ms")
+            f"with the L2 flushed")
     rec["bai_breen_estimate"]["max_abs_err"] = k1_err
     rec["bai_breen_refine"]["max_abs_err"] = k2_err
     rec["pair_reduce"]["max_abs_err"] = e3
     return rec
+
+
+def com_cog_checks(torch, dt, w, dist, n_prot, n_mem):
+    """The COM-COG distance of the kernel path (K1 + K2 on the card)
+    against the twin path (the same port functions on CPU tensors), on the
+    resident window's dequantised parity frames.
+
+    A refined centre jumps by n L / N when the unwrap boundary e + L/2 of
+    its estimate crosses a plane of n atoms with one quantised coordinate
+    (`testing.center_jump_bound`), and the membrane slab fills the box in
+    x and y.  So the two paths may differ by 1e-4 plus what the atoms that
+    change image between the kernel's and the twin's membrane estimates
+    explain, and no more.  Then, to see which float32 step of the estimate
+    moves it across a plane, the distance from estimates whose angles are
+    rounded as the twin rounds them, as the twin without its wrap, and as
+    the kernel (y = x RN(4/L), angle pi/2 y), each summed in float64,
+    against the float64 oracle's estimate."""
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.ops import pbc
+
+    f = PARITY_FRAMES
+    pos = dt.pos[:f].float() * dt.inv_prec[:f, None, None]
+    boxes = dt.boxes[:f]
+    w = torch.as_tensor(w, dtype=torch.float32, device=pos.device)
+    mem = slice(n_prot, n_prot + n_mem)
+
+    def path(p, bx, wt, est=None):
+        ca = C.center(p[:, :n_prot], bx, weights=wt)
+        cb = (C.center(p[:, mem], bx) if est is None
+              else K.bai_breen_refine(p[:, mem], None, bx, est))
+        return pbc.distance(ca, cb, bx)
+
+    d_k = path(pos, boxes, w)
+    e = float((d_k.cpu().double() - torch.from_numpy(dist[:f]).double()).abs().max())
+    check(e <= 1e-6, f"the kernel path here is the pipeline's ({e:.1e})")
+    pos_c, boxes_c = pos.cpu(), boxes.cpu()
+    d_p = path(pos_c, boxes_c, w.cpu())
+    e_k = K.bai_breen_estimate(pos[:, mem], None, boxes)
+    e_p = K.bai_breen_estimate(pos_c[:, mem], None, boxes_c)
+    flips, jump = testing.center_jump_bound(pos_c[:, mem].numpy(), e_k.cpu().numpy(),
+                                            e_p.numpy(), boxes_c.numpy())
+    gap = (d_k.cpu() - d_p).abs().double().numpy()
+    allowed = 1e-4 + np.sqrt((jump ** 2).sum(1))
+    for i in np.flatnonzero((flips.sum(1) > 0) | (gap > 1e-5)):
+        say(f"  frame {i}: kernel path {float(d_k[i]):.7f}, twin path "
+            f"{float(d_p[i]):.7f}, gap {gap[i]:.3e}; atoms changing image per "
+            f"axis {flips[i].tolist()} (bound {np.sqrt((jump[i] ** 2).sum()):.3e}); "
+            f"estimates {e_k[i].tolist()} vs {e_p[i].tolist()}")
+    check(bool((gap <= allowed).all()),
+          f"kernel path vs twin path, COM-COG distance over {f} frames: max gap "
+          f"{gap.max():.3e}, within 1e-4 plus the image changes "
+          f"({int(flips.sum())} atoms in all)")
+    d_kp = path(pos, boxes, w, e_p.to(pos.device))
+    e = float((d_kp.cpu() - d_p).abs().max())
+    check(e <= 1e-4, f"K2 on the card around the twin's estimate gives the twin "
+          f"path's distance ({e:.1e}): the gap comes from K1's estimate")
+
+    x = pos[:, mem].double()
+    L = boxes[:, None, :].double()
+    x32, L32 = pos[:, mem], boxes[:, None, :]
+    two_pi, four = (torch.tensor(v, device=pos.device) for v in (2 * np.pi, 4.0))
+    angles = {  # float32 angle arguments, then float64 trig and sums
+        "twin": ((x32 - L32 * torch.floor(x32 / L32)) * (two_pi / L32)).double(),
+        "twin without its wrap": (x32 * (two_pi / L32)).double(),
+        "kernel": (x32 * (four / L32)).double() * (np.pi / 2),
+        "float64": torch.remainder(x, L) * (2 * np.pi / L)}
+    got = {}
+    for name, th in angles.items():
+        est = (torch.atan2(-torch.sin(th).sum(1), -torch.cos(th).sum(1)) + np.pi) \
+            * boxes.double() / (2 * np.pi)
+        got[name] = path(pos, boxes, w, est.float()).cpu().double()
+    got["kernel, float32 sums"], got["twin, float32 sums"] = d_k.cpu().double(), d_p.double()
+    ref = got["float64"]
+    say("  COM-COG distance by the estimate's arithmetic, max |d - d(float64 "
+        "estimate)| over the frames: " + ", ".join(
+            f"{k} {float((v - ref).abs().max()):.3e}" for k, v in got.items()))
+    for i in range(f):
+        if max(abs(float(v[i] - ref[i])) for v in got.values()) > 1e-5:
+            say(f"    frame {i}: " + ", ".join(f"{k} {float(v[i]):.7f}"
+                                              for k, v in got.items()))
 
 
 def profile_pass(torch, label, fn):
@@ -764,10 +829,13 @@ def main():
             check(e <= 1e-6, f"{label} {k} equals streamed (max diff {e:.1e})")
     via_run = runner.run(dt, batch_size=BATCH)
     check(np.array_equal(via_run["times"], out["times"]), "resident times")
+    counts = dict(K.launch_counts)  # the main path ends here
+    check(np.array_equal(runner.sel, np.arange(n_prot + n_mem)),
+          "the pass ships the protein, then the membrane")
+    com_cog_checks(torch, dt, w, out["dist"], n_prot, n_mem)
 
     # ---- 6. the kernels ran on the main path ----------------------------
-    counts = dict(K.launch_counts)
-    say(f"phase 6: launches during the main path {counts}")
+    say(f"phase 6: launches during the main path (phases 4-5) {counts}")
     for k, v in counts.items():
         check(v > 0, f"{k} launched on the main path")
 
@@ -800,7 +868,6 @@ def main():
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
          "pct_of_bound": 100 * rec[k]["bound"][0] / rec[k]["ms"],
          "ms_l2_flushed": rec[k]["ms_l2_flushed"],
-         "ms_before": MS_BEFORE[k], "ms_before_from": "PERF.md kernel table, first port",
          "library_ms": None, "library_none": no_library[k],
          "shape": rec[k]["shape"], "observables_launches": obs_counts[k]}
         for k in src]}))

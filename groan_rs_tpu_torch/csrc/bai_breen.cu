@@ -48,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -57,6 +59,10 @@ constexpr int kChunk = 4;  // consecutive atoms a K1 thread reads at once
 constexpr int kWarps = kThreads / 32;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kPi = 3.141592653589793f;
+
+// CUDA launches made by this file's entry points, one per <<<>>>, so a
+// caller can check how many kernels a call runs (K1: one, K2: two).
+std::atomic<unsigned long long> g_launches{0};
 
 // Sum NV per-thread values over the block in a fixed order; the totals
 // are valid in thread 0.
@@ -277,6 +283,11 @@ extern "C" {
 // rows [B, ceil(N / this), 7 or 4] with it.
 int gk_bb_atoms_per_block() { return kAtomsPerBlock; }
 
+// CUDA launches made so far by gk_bb_estimate and gk_bb_refine.
+unsigned long long gk_bb_launches() {
+  return g_launches.load(std::memory_order_relaxed);
+}
+
 // K1.  pos: [B, N, 3] float32 rows (atom stride 3, frame stride
 // `frame_stride` floats); w: [N] or NULL (all ones); boxes: [B, 3];
 // partials: scratch [B, nblk, 7]; tickets: [>= B] uint32, all 0 on entry
@@ -288,6 +299,7 @@ int gk_bb_estimate(const float* pos, long long frame_stride, int n,
   estimate_kernel<<<dim3(n_blocks(n), n_frames), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       pos, frame_stride, n, w, boxes, partials, tickets, est);
+  g_launches.fetch_add(1, std::memory_order_relaxed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,8 +312,10 @@ int gk_bb_refine(const float* pos, long long frame_stride, int n,
   const int nblk = n_blocks(n);
   refine_partials<<<dim3(nblk, n_frames), kThreads, 0, s>>>(
       pos, frame_stride, n, w, boxes, est, partials);
+  g_launches.fetch_add(1, std::memory_order_relaxed);
   refine_finish<<<(n_frames + 127) / 128, 128, 0, s>>>(partials, nblk, out,
                                                        n_frames);
+  g_launches.fetch_add(1, std::memory_order_relaxed);
   return static_cast<int>(cudaGetLastError());
 }
 

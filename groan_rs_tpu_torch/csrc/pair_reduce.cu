@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -271,13 +273,28 @@ pair_reduce_kernel(const float* __restrict__ s, long long s_stride, int n_s,
   if (cur_f >= 0) flush(dmin, cnt, cur_f, min_bits, count);
 }
 
-// Blocks of `kernel` that fit on the current device at once.
-int resident_blocks(const void* kernel) {
-  int dev = 0, sms = 0, per_sm = 0;
+constexpr int kMaxDevices = 64;
+
+// Blocks of pair_reduce_kernel<kSIsA> that fit on the current device at
+// once.  Fixed per device and instance: queried on the first launch there,
+// then read from a cache (0 = not yet queried).
+template <bool kSIsA>
+int resident_blocks() {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0;
   cudaGetDevice(&dev);
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached) {
+    const int c = cache[dev].load(std::memory_order_relaxed);
+    if (c > 0) return c;
+  }
+  int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  return sms * per_sm > 0 ? sms * per_sm : 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pair_reduce_kernel<kSIsA>, kThreads, 0);
+  const int blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (cached) cache[dev].store(blocks, std::memory_order_relaxed);
+  return blocks;
 }
 
 }  // namespace
@@ -297,9 +314,8 @@ int gk_pair_reduce(const float* a, long long a_stride, int n, const float* b,
   const int n_s = s_is_a ? n : m, n_r = s_is_a ? m : n;
   const long long n_items = (long long)n_frames * ((n_s + kSTile - 1) / kSTile) *
                             ((n_r + kRTile - 1) / kRTile);
-  const void* kernel = s_is_a ? (const void*)pair_reduce_kernel<true>
-                              : (const void*)pair_reduce_kernel<false>;
-  const long long resident = resident_blocks(kernel);
+  const long long resident =
+      s_is_a ? resident_blocks<true>() : resident_blocks<false>();
   // Even runs: the fewest items per block that fit one wave of blocks.
   const long long per_block = (n_items + resident - 1) / resident;
   const int grid = (int)((n_items + per_block - 1) / per_block);

@@ -113,6 +113,8 @@ def _load():
                                 ctypes.c_int, ctypes.c_float)
             lib.gk_bb_atoms_per_block.restype = i32
             lib.gk_bb_atoms_per_block.argtypes = []
+            lib.gk_bb_launches.restype = ctypes.c_ulonglong
+            lib.gk_bb_launches.argtypes = []
             lib.gk_bb_estimate.restype = i32
             lib.gk_bb_estimate.argtypes = [vp, ll, i32, vp, vp, vp, vp, vp,
                                            i32, vp]

@@ -11,6 +11,9 @@ references (`bench.py:122-157`):
   determinant fix (rmsd.rs:547-604) in float64 numpy.
 - `host_min_distance` — minimum-image min distance, chunked in float64.
 
+`center_jump_bound` says how far a refined centre may move between two
+estimates through atoms that the unwrap puts into another image.
+
 The rest are written from the formulas of the observables' docstrings in
 `groan_rs_tpu/models/pipeline.py` and `ops/geometry.py`, one frame at a
 time: `host_gyration`, `host_principal`, `host_dipole`,
@@ -40,7 +43,7 @@ import numpy as np
 
 from .io import native
 
-__all__ = ["host_refined_center", "host_kabsch_rmsd", "host_min_distance",
+__all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host_min_distance",
            "host_gyration", "host_principal", "host_dipole",
            "host_total_dipole", "host_order", "angles_host_f64",
            "dihedrals_host_f64", "host_density_profile", "host_density_map",
@@ -66,6 +69,27 @@ def host_refined_center(p, box, w=None):
         return unwrapped.mean(0)
     w = np.asarray(w, np.float64)
     return (unwrapped * w[:, None]).sum(0) / w.sum()
+
+
+def center_jump_bound(pos, est_a, est_b, boxes):
+    """How far the geometric refined centre of `pos` [B, N, 3] may move
+    between the estimates `est_a` and `est_b` [B, 3] through atoms that
+    change image.  K2 and its twin unwrap an atom into the image
+    floor((x - e + L/2) / L), computed here in float32 as they compute it;
+    an atom whose image differs between the two estimates moves the centre
+    by L / N on that axis.  A slab that fills the box holds planes of atoms
+    with one quantised coordinate, so an estimate that moves by an ulp
+    across such a plane moves the centre by n L / N.
+    -> (atoms that change image [B, 3] int64, bound [B, 3] float64)."""
+    pos = np.asarray(pos, np.float32)
+    box = np.asarray(boxes, np.float32)[:, None, :]
+    half = box * np.float32(0.5)
+
+    def image(e):
+        return np.floor((pos - np.asarray(e, np.float32)[:, None, :] + half) / box)
+
+    counts = (image(est_a) != image(est_b)).sum(1)
+    return counts, counts * box[:, 0, :].astype(np.float64) / pos.shape[1]
 
 
 def host_kabsch_rmsd(ref, ref_com, p, box, w):

@@ -172,3 +172,43 @@ def test_k1_sincos_matches_float64():
     theta = np.pi / 2 * y.astype(np.float64)
     assert np.abs(s - np.sin(theta)).max() < 2e-7
     assert np.abs(c - np.cos(theta)).max() < 2e-7
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_centre_jump_is_the_atoms_that_change_image(axis):
+    """A slab whose atoms share quantised coordinates: when the unwrap
+    boundary e + L/2 crosses a plane of atoms, the refined centre of the
+    twin jumps by n L / N on that axis, and `testing.center_jump_bound`
+    counts those n atoms; estimates between the same two planes move it
+    by float rounding only.  The K1 estimate within 1e-4 of the JAX one
+    (the tolerance above) therefore pins the refined centre only up to
+    such jumps."""
+    from groan_rs_tpu_torch import testing
+
+    rng = np.random.default_rng(12)
+    box = np.array([[4.0, 4.5, 5.0]], np.float32)
+    pos = (rng.random((1, 4000, 3)) * box[:, None, :]).astype(np.float32)
+    pos[0, :, axis] = rng.integers(0, 16, 4000) * box[0, axis] / 16  # 16 planes
+    top = float(box[0, axis]) * 15 / 16  # the last plane
+    e_mid = (box * 0.4).astype(np.float32)  # boundary between planes 14 and 15
+
+    def shifted(x):
+        e = e_mid.copy()
+        e[0, axis] = x
+        return e
+
+    edge = top - box[0, axis] / 2  # the estimate whose boundary is the plane
+    ests = {"below": shifted(edge - 1e-3), "above": shifted(edge + 1e-3),
+            "mid": e_mid, "mid+": shifted(e_mid[0, axis] + 1e-3)}
+    centre = {k: n(K.bai_breen_refine_plain(t(pos), None, t(box), t(e)))[0]
+              for k, e in ests.items()}
+    counts, bound = testing.center_jump_bound(pos, ests["below"], ests["above"], box)
+    n_plane = int((pos[0, :, axis] == np.float32(top)).sum())
+    assert n_plane > 0 and counts[0, axis] == n_plane
+    assert counts[0].sum() == n_plane
+    gap = np.abs(centre["below"] - centre["above"])
+    np.testing.assert_allclose(gap[axis], bound[0, axis], atol=1e-5)
+    assert np.delete(gap, axis).max() < 1e-5
+    counts, _ = testing.center_jump_bound(pos, ests["mid"], ests["mid+"], box)
+    assert counts.sum() == 0
+    assert np.abs(centre["mid"] - centre["mid+"]).max() < 1e-5
