@@ -15,11 +15,15 @@ Phases, each of which raises on failure (the run then exits non-zero):
    (min bits and counts) at half-box ties (`testing.tie_quotients`,
    `half_box_sets`, `half_box_lattice`), at N < M, N > M and N above the
    staged tile for B = 1 and 100, and over five repeated calls.  K1 within
-   1e-4 at n = 1..300000 for B = 100, 1, 12 back to back (ticket reuse),
-   the same bits on an unaligned view as on its aligned copy and over
-   five calls; one CUDA launch per K1 call and two per K2 call, by the
-   library's own count.  Times of kernels and twins, with
-   and without an L2 flush, beside each kernel's bound.
+   1e-4 and K2 within 2e-4 at n = 1..300000 for B = 100, 1, 12 back to
+   back (ticket reuse), K2 with and without masked weights; the same bits
+   on an unaligned view as on its aligned copy, over five calls and (K2)
+   for a frame alone as in its batch; one CUDA launch per K1 and per K2
+   call, by the library's own count.  K2 on the refine tie sets
+   (`testing.refine_tie_sets`): each tie coordinate alone in a thread
+   (`testing.refine_tie_atoms`) unwrapped as the twin does, the 28-atom
+   frames within 1e-5.  Times of kernels and
+   twins, with and without an L2 flush, beside each kernel's bound.
 4. Main path, streamed: a synthetic 1,000,000-atom membrane-protein system
    (protein 99k, membrane 300k atoms) over SMOKE_FRAMES frames (default
    48), COM + COM distance + fitted RMSD + peptide-membrane min distance at
@@ -154,7 +158,7 @@ FP32_OPS_S = 67e12 / 2
 # round, mul by L, sub, square (21); two adds of the squares; min; compare.
 K3_OPS_PER_PAIR = 25
 KERNEL_NAMES = {"bai_breen_estimate": ["estimate_kernel"],
-                "bai_breen_refine": ["refine_partials", "refine_finish"],
+                "bai_breen_refine": ["refine_kernel"],
                 "pair_reduce": ["pair_reduce_kernel"]}
 
 
@@ -323,7 +327,7 @@ def k1_checks(dev, uniform):
     lib = K._load()
     for fn, per_call, what in (
             (lambda: K.bai_breen_estimate(pos, None, box12), 1, "K1"),
-            (lambda: K.bai_breen_refine(pos, None, box12, est), 2, "K2")):
+            (lambda: K.bai_breen_refine(pos, None, box12, est), 1, "K2")):
         n0 = lib.gk_bb_launches()
         for _ in range(3):
             fn()
@@ -332,6 +336,102 @@ def k1_checks(dev, uniform):
               f"{'es' if per_call > 1 else ''} per call (3 calls: {made}, "
               "the library's own count of its <<<>>> launches)")
     return worst
+
+
+def k2_checks(dev, uniform):
+    """K2 against its twin (2e-4) around fixed estimates on clustered
+    frames, at odd sizes, B = 100 / 1 / 12 back to back, with and without
+    masked weights; repeated calls, calls at other B, each frame alone and
+    a view 12 bytes off alignment give the batch's bits: a frame's sums
+    depend on N alone."""
+    import torch
+
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator().manual_seed(2)
+    box = torch.tensor([21.0, 21.0, 20.5], device=dev)
+    box12 = box.expand(12, 3).contiguous()
+
+    def clustered(b, n):
+        ctr = uniform(b, 1, 3) * box
+        return (ctr + torch.randn(b, n, 3, generator=gen).to(dev) * 0.12 * box
+                + uniform(b, n, 3, lo=-0.02, hi=0.02) * box)
+
+    first = {}
+    worst = 0.0
+    for n in (1, 2047, 2048, 2049, 99000, 300000):
+        for b in (100, 1, 12):  # back to back: the tickets are reused
+            boxes = box.expand(b, 3).contiguous()
+            pos = clustered(b, n)
+            est = K.bai_breen_estimate_plain(pos, None, boxes)
+            w = uniform(n, lo=1.0, hi=16.0)
+            w[::7] = 0.0
+            for wt in (None, w):
+                ctr = K.bai_breen_refine(pos, wt, boxes, est)
+                e = max_err(ctr, K.bai_breen_refine_plain(pos, wt, boxes, est))
+                worst = max(worst, e)
+                if e >= 2e-4:
+                    raise AssertionError(f"K2 n={n} B={b} weights={wt is not None}: "
+                                         f"{e:.3e} from the twin")
+                if b == 12:
+                    first[n, wt is not None] = (pos, wt, est, ctr)
+    check(True, f"K2 within 2e-4 of its twin at n = 1..300000, B = 100, 1, 12 "
+          f"back to back, with and without masked weights (max {worst:.2e})")
+    for (n, weighted), (pos, wt, est, ctr) in first.items():  # after every other B
+        check(same_bits(K.bai_breen_refine(pos, wt, box12, est), ctr),
+              f"K2 n={n} weights={weighted}: the same bits after calls at other B")
+        alone = torch.cat([K.bai_breen_refine(pos[f:f + 1], wt, box12[:1], est[f:f + 1])
+                           for f in range(12)])
+        check(same_bits(alone, ctr), f"K2 n={n} weights={weighted}: each frame "
+              "alone (B = 1) gives its bits in the batch of 12")
+    pos, _, est, ctr = first[300000, False]
+    check(all(same_bits(K.bai_breen_refine(pos, None, box12, est), ctr)
+              for _ in range(5)), "K2 [12, 300000, 3]: five calls, identical bits")
+    wide = clustered(12, 300001)
+    view = wide[:, 1:]  # starts at atom 1: 12 bytes past a 16-byte boundary
+    w_wide = uniform(300001, lo=1.0, hi=16.0)
+    wv = w_wide[1:]  # 4 bytes past a 16-byte boundary
+    check(view.data_ptr() % 16 != 0 and wv.data_ptr() % 16 != 0,
+          "the slice views are not 16-byte aligned")
+    est = K.bai_breen_estimate_plain(view.contiguous(), None, box12)
+    for wt, wc in ((None, None), (wv, wv.clone())):
+        ev = K.bai_breen_refine(view, wt, box12, est)
+        check(same_bits(ev, K.bai_breen_refine(view.contiguous(), wc, box12, est)),
+              f"K2 weights={wt is not None} reads the unaligned views in place "
+              "with the aligned copies' bits")
+        e = max_err(ev, K.bai_breen_refine_plain(view.contiguous(), wc, box12, est))
+        check(e < 2e-4, f"K2 unaligned view within 2e-4 of its twin ({e:.2e})")
+    return worst
+
+
+def k2_tie_checks(dev):
+    """K2 against its twin on the refine tie sets, where d = (p - e) + L/2
+    is k L or a few steps from it: each tie coordinate alone in one
+    thread's frame (`testing.refine_tie_atoms`, whose centre is the
+    unwrapped atom) equal to the twin, and the 28-atom frames within
+    1e-5, where one atom in another image moves a centre by L / 28."""
+    import torch
+
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    pos, est, box, w = (torch.from_numpy(x).to(dev) for x in testing.refine_tie_atoms())
+    got, want = K.bai_breen_refine(pos, w, box, est), K.bai_breen_refine_plain(pos, w, box, est)
+    bad = (got != want).any(1).nonzero()
+    check(len(bad) == 0, f"K2 refine tie sets: {len(pos)} tie coordinates, each "
+          f"alone in a thread, unwrapped into the twin's image ({len(bad)} differ)")
+    pos, est, box = (torch.from_numpy(x).to(dev) for x in testing.refine_tie_sets())
+    na = pos.shape[1]
+    w = torch.from_numpy(np.random.default_rng(3).uniform(1.0, 16.0, na)
+                         .astype(np.float32)).to(dev)
+    jump = float(box.min()) / na
+    for wt in (None, w):
+        e = max_err(K.bai_breen_refine(pos, wt, box, est),
+                    K.bai_breen_refine_plain(pos, wt, box, est))
+        check(e < 1e-5, f"K2 refine tie sets, {pos.shape[0]} frames of {na} atoms, "
+              f"weights={wt is not None}: within 1e-5 of the twin ({e:.2e}; an atom "
+              f"in another image would move a centre by >= {jump:.3f})")
+
 
 def kernel_checks(dev):
     """Phase 3 -> {kernel name: record} for the JSON line."""
@@ -419,6 +519,8 @@ def kernel_checks(dev):
                                          torch.full((2, 3), 5.0, device=dev)))
     check(e < 2e-4, f"K1/K2 read a slice view in place ({e:.1e})")
     k1_checks(dev, uniform)
+    k2_checks(dev, uniform)
+    k2_tie_checks(dev)
 
     # ---- K3 small cases: exact counts, min within 1e-6 ---------------
     bx3 = torch.tensor([[5.0, 6.0, 7.0]] * 2, device=dev)

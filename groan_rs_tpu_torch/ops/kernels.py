@@ -113,14 +113,16 @@ def _load():
                                 ctypes.c_int, ctypes.c_float)
             lib.gk_bb_atoms_per_block.restype = i32
             lib.gk_bb_atoms_per_block.argtypes = []
+            lib.gk_bb_refine_tile.restype = i32
+            lib.gk_bb_refine_tile.argtypes = []
             lib.gk_bb_launches.restype = ctypes.c_ulonglong
             lib.gk_bb_launches.argtypes = []
             lib.gk_bb_estimate.restype = i32
             lib.gk_bb_estimate.argtypes = [vp, ll, i32, vp, vp, vp, vp, vp,
                                            i32, vp]
             lib.gk_bb_refine.restype = i32
-            lib.gk_bb_refine.argtypes = [vp, ll, i32, vp, vp, vp, vp, vp, i32,
-                                         vp]
+            lib.gk_bb_refine.argtypes = [vp, ll, i32, vp, vp, vp, vp, vp, vp,
+                                         i32, vp]
             lib.gk_pair_reduce.restype = i32
             lib.gk_pair_reduce.argtypes = [vp, ll, i32, vp, ll, i32, vp, f32,
                                            vp, vp, i32, vp]
@@ -207,16 +209,19 @@ def _squeeze_like(out: torch.Tensor, pos_in: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- K1: estimate
 
 
-_ticket_bufs: dict = {}  # device -> uint32 tickets of K1's fused finish
+_ticket_bufs: dict = {}  # device -> uint32 tickets of K1's and K2's finish
 
 
 def _tickets(device, n_frames: int) -> torch.Tensor:
-    """K1's per-frame tickets on `device`, at least `n_frames` long.
+    """K1's and K2's per-frame tickets on `device`, at least `n_frames`
+    long.
 
-    Every launch leaves them all 0 (the last block of a frame resets its
-    ticket), so the buffer is zeroed once, when it is made or grown.  One
-    buffer per device: launches that share it must not overlap, which holds
-    because every kernel of the port goes to the current stream in turn."""
+    Every launch of either kernel leaves them all 0 (the block that
+    finishes a frame resets its ticket), so the buffer is zeroed once, when
+    it is made or grown.  One buffer per device, shared by K1 and K2:
+    launches that share it must not overlap, which holds because every
+    kernel of the port goes to the current stream in turn, and a launch
+    that finds every ticket at 0 cannot tell which kernel ran before it."""
     buf = _ticket_bufs.get(device)
     if buf is None or buf.numel() < n_frames:
         buf = torch.zeros(max(n_frames, 64), dtype=torch.int32, device=device)
@@ -288,10 +293,11 @@ def bai_breen_refine_plain(pos, weights, boxes, est):
 
 
 def bai_breen_refine(positions, weights, box, est):
-    """K2: refined centre around a K1 estimate.
+    """K2: refined centre around a K1 estimate, one launch per call.
 
     positions [N, 3] or [B, N, 3]; weights [N] or None (ones); box
-    broadcastable to [B, 3]; est [3] or [B, 3] -> [3] or [B, 3]."""
+    broadcastable to [B, 3]; est [3] or [B, 3] -> [3] or [B, 3].  The
+    kernel shares K1's ticket buffer (`_tickets`)."""
     kernel = _on_kernel(positions, weights, box, est)
     pos = _frames(positions)
     b, n = pos.shape[0], pos.shape[1]
@@ -302,13 +308,14 @@ def bai_breen_refine(positions, weights, box, est):
     if not kernel:
         return _squeeze_like(bai_breen_refine_plain(pos, w, boxes, est), positions)
     lib = _load()
-    nblk = max(1, -(-n // lib.gk_bb_atoms_per_block()))
-    partials = torch.empty((b, nblk, 4), dtype=torch.float32, device=pos.device)
+    tiles = max(1, -(-n // lib.gk_bb_refine_tile()))
+    partials = torch.empty((b, tiles, 4), dtype=torch.float32, device=pos.device)
     out = torch.empty((b, 3), dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         rc = lib.gk_bb_refine(_ptr(pos), pos.stride(0), n, _ptr(w),
                               _ptr(boxes), _ptr(est), _ptr(partials),
-                              _ptr(out), b, _stream(pos.device))
+                              _ptr(_tickets(pos.device, b)), _ptr(out), b,
+                              _stream(pos.device))
     _check_rc(rc, "bai_breen_refine")
     launch_counts["bai_breen_refine"] += 1
     return _squeeze_like(out, positions)

@@ -50,7 +50,9 @@ __all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host
            "host_in_shape", "host_pair_histogram", "cylinder_args",
            "add_observables", "observable_errors", "undefined_sites",
            "synthetic_sizes",
-           "synthetic_layout", "build_trajectory", "synthetic_state"]
+           "synthetic_layout", "build_trajectory", "synthetic_state",
+           "REFINE_TIE_LENGTHS", "REFINE_TIE_KS", "refine_tie_sets",
+           "refine_tie_atoms"]
 
 
 def host_refined_center(p, box, w=None):
@@ -682,3 +684,82 @@ def half_box_lattice(L: float):
     a = np.stack(np.meshgrid(grid, grid[:3], grid[:2]), -1).reshape(-1, 3)
     b = np.concatenate([a[::7], a[::5] + f32(L) * 3])
     return a, b, box, h
+
+
+# ---------------------------------------------------------------- K2 tie sets
+# Frames whose atoms sit where K2's image floor(d / L), d = (p - e) + L/2,
+# turns over: d exactly k L and a few steps either side.  A floor taken
+# from the reciprocal 1/L differs there from the true division's.  Few
+# atoms per frame, so that one atom in another image moves the centre by
+# L / n or more.  Shared by the CPU tests and the card's checks.
+
+REFINE_TIE_LENGTHS = (21.0, 20.5, 7.3, 3.0)
+REFINE_TIE_KS = (-1, 0, 1, 2)
+
+
+def _tie_coordinates(e, L, k, steps):
+    """Float32 coordinates p whose d = (p - e) + L/2 lies at fl(k L): the
+    p that gives d == fl(k L) exactly (or, where none does, the nearest d),
+    and `steps` distinct p on either side of it."""
+    f32 = np.float32
+    half = L * f32(0.5)
+    target = f32(k) * L
+    p0 = f32(np.float64(target) - np.float64(half) + np.float64(e))
+    cand = np.unique(np.concatenate([
+        (np.float64(p0) + np.arange(-64, 65) * np.float64(np.spacing(p0))).astype(f32),
+        [p0]]))
+    d = (cand - f32(e)) + half
+    exact = np.flatnonzero(d == target)
+    i = (exact[np.argmin(np.abs(exact - np.searchsorted(cand, p0)))] if len(exact)
+         else int(np.argmin(np.abs(d.astype(np.float64) - np.float64(target)))))
+    return cand[i - steps:i + steps + 1]
+
+
+def refine_tie_sets(steps: int = 3):
+    """(pos [F, n, 3], est [F, 3], box [F, 3]) float32: per box length of
+    REFINE_TIE_LENGTHS three frames (three estimates per axis: L/2, 0 and
+    a seeded value in [0, L/2), so that every unwrapped coordinate lies
+    within L of 0 and a float32 sum of a frame in any order stays well
+    within 1e-5 of its exact mean), each of n = len(REFINE_TIE_KS) x
+    (2 steps + 1) atoms.  On every axis the atoms take, for each k of
+    REFINE_TIE_KS, the coordinates of `_tie_coordinates` (d = fl(k L) and
+    `steps` neighbours either side); the k of an atom rotates with the
+    axis, so every atom is at a tie on all three axes."""
+    f32 = np.float32
+    rng = np.random.default_rng(4)
+    nk, width = len(REFINE_TIE_KS), 2 * steps + 1
+    pos, ests, boxes = [], [], []
+    for length in REFINE_TIE_LENGTHS:
+        L = f32(length)
+        free = rng.uniform(0.0, length / 2, 3).astype(f32)
+        for v in range(3):
+            est = np.array([(L * f32(0.5), f32(0.0), free[ax])[(v + ax) % 3]
+                            for ax in range(3)], f32)
+            frame = np.empty((nk * width, 3), f32)
+            for ax in range(3):
+                for ki in range(nk):
+                    k = REFINE_TIE_KS[(ki + ax) % nk]
+                    frame[ki * width:(ki + 1) * width, ax] = _tie_coordinates(
+                        est[ax], L, k, steps)
+            pos.append(frame)
+            ests.append(est)
+            boxes.append(np.full(3, L, f32))
+    return np.stack(pos), np.stack(ests), np.stack(boxes)
+
+
+def refine_tie_atoms():
+    """(pos [M, 4, 3], est [M, 3], box [M, 3], w [4]) float32: one frame per
+    coordinate of `refine_tie_sets` (M = F x n x 3).  Atom 0 carries that
+    coordinate on its axis and sits at the estimate on the other two (d =
+    L/2, far from any image boundary); atoms 1..3 sit at the estimate and
+    weigh 0.  The frame's weighted centre is atom 0's unwrapped position,
+    exactly, in any sum order.  K2 gives one thread four consecutive atoms,
+    so this frame is one thread, and only the coordinate under test can
+    send it to the true division."""
+    pos, est, box = refine_tie_sets()
+    nf, na, _ = pos.shape
+    f, a, ax = (g.ravel() for g in np.meshgrid(np.arange(nf), np.arange(na),
+                                               np.arange(3), indexing="ij"))
+    frames = np.repeat(est[f][:, None, :], 4, 1)
+    frames[np.arange(len(f)), 0, ax] = pos[f, a, ax]
+    return frames, est[f], box[f], np.array([1, 0, 0, 0], np.float32)
