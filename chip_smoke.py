@@ -46,9 +46,29 @@ Phases, each of which raises on failure (the run then exits non-zero):
    passes equal the streamed one within 1e-6; `run_many` over the window
    with this pass and phase 4's equals the two `run(dt)` calls bit for
    bit in one packed fetch; the K1 and K2 launch counters rose.
+8. The triclinic main path: the synthetic system in an xy-square rhombic
+   dodecahedron (d = 23.57 nm, the 21 nm cube's volume; the protein on a
+   cell corner, the membrane on the plane z = 0 through it, so the faces
+   split both; GROMACS `put_atoms_in_box` wrapping keeps the q16 wire),
+   `TrajectoryAnalysis(system, triclinic=True)`: COM, COM distance,
+   fitted RMSD, peptide-membrane min distance and contacts (0.4 nm), batch
+   12, streamed twice; against the triclinic float64 oracles (COM,
+   distance, RMSD within 2e-3 on 24 frames, min distance within 1e-4 and
+   contacts inside the oracle's bounds on 2); the resident passes equal
+   streamed; the box inverse, the volume and the triclinic centre and pair
+   path make no host synchronisation; an orthorhombic treatment of the
+   diagonal puts the frame-0 COM more than 1 nm off; K1, K2 and K3 never
+   launch.
+9. The triclinic observables: the full topology in the same box, every
+   atom shipped, 12 frames (one batch): phase 7's observables without the
+   in-shape count (which a triclinic pass refuses), the density map over
+   an explicit span; the float64 oracles on 2 frames (the RDF on 1);
+   resident equal to streamed; `run_many` with phase 8's pass equal to the
+   two `run(dt)` calls bit for bit; K1, K2 and K3 never launch.
 
-The last two stdout lines are the kernels' JSON record and the result line
-`{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+Every phase prints its seconds.  The last two stdout lines are the
+kernels' JSON record and the result line `{"ok": true, "device":
+{...}}`.  Imports nothing of JAX.
 """
 
 import json
@@ -661,11 +681,13 @@ def com_cog_checks(torch, dt, w, dist, n_prot, n_mem):
 
 
 def profile_pass(torch, label, fn):
-    """One profiled pass: wall clock, device busy share, top device ops."""
+    """One profiled pass: wall clock, device busy share, top device ops ->
+    (wall seconds, device compute seconds).  Device activity only: a
+    triclinic pass launches ~10^5 kernels, whose host-side events made
+    the profiler's post-processing take minutes."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -678,6 +700,328 @@ def profile_pass(torch, label, fn):
         f"memcpy {copy_us / 1e6:.4f} s")
     for k, us, c in rows[:8]:
         say(f"    {us / 1e3:9.3f} ms  x{c:<5d} {k[:90]}")
+    return wall, busy_us / 1e6
+
+
+def phase_seconds(phase, since):
+    """Print a phase's seconds; -> the clock for the next phase."""
+    now = time.perf_counter()
+    say(f"phase {phase} seconds: {now - since:.1f}")
+    return now
+
+
+def cached_xtc(path, n_frames, build):
+    """`path` when it holds an `N_ATOMS` x `n_frames` trajectory, else
+    `build(path)` first (the build directory survives within one run)."""
+    from groan_rs_tpu_torch.io import native
+
+    if os.path.exists(path):
+        offs, _, _, nat = native.xtc_scan(path)
+        if len(offs) == n_frames and nat == N_ATOMS:
+            return path
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    build(path)
+    say(f"  trajectory {os.path.basename(path)} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def triclinic_xtc(n_frames):
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    return cached_xtc(
+        os.path.join(K.BUILD_DIR, f"smoke_dodecahedron_{N_ATOMS}_{n_frames}.xtc"),
+        n_frames, lambda p: testing.build_trajectory_triclinic(p, N_ATOMS, n_frames))
+
+
+def no_launches(counts, what):
+    check(all(v == 0 for v in counts.values()),
+          f"{what}: K1, K2 and K3 never launched ({counts})")
+
+
+def sync_checks(torch, h, frames, n_prot, n_mem):
+    """The triclinic step's pieces make no host synchronisation
+    (`torch.cuda.set_sync_debug_mode("error")` raises on one); report
+    whether `torch.linalg.inv` and `torch.linalg.det` would have made one."""
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import distances as D
+    from groan_rs_tpu_torch.ops import pbc
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            return True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return False
+
+    pep, mem = frames[:, :min(400, n_prot)], frames[:, n_prot:n_prot + n_mem]
+    small = mem[:, :20000]
+    for label, fn in (
+            ("box_inverse (torch.linalg.inv_ex)", lambda: pbc.box_inverse(h)),
+            ("box_volume (rule of Sarrus)", lambda: pbc.box_volume(h)),
+            ("center_triclinic", lambda: C.center_triclinic(mem, h)),
+            ("min_image_triclinic_frames",
+             lambda: pbc.min_image_triclinic_frames(frames[:, :n_prot], h)),
+            ("min_distance_triclinic", lambda: D.min_distance_triclinic(pep, small, h)),
+            ("contact_count_triclinic",
+             lambda: D.contact_count_triclinic(pep, small, h, 0.4)),
+            ("pair_distance_histogram (matrices)",
+             lambda: D.pair_distance_histogram(pep, small, h, 2.0, 200))):
+        check(not syncs(fn), f"{label} makes no host synchronisation")
+    say(f"  torch.linalg.inv synchronises the host: "
+        f"{syncs(lambda: torch.linalg.inv(h))}; torch.linalg.det: "
+        f"{syncs(lambda: torch.linalg.det(h))}")
+    h64 = h.double().cpu()
+    e_inv = float(((pbc.box_inverse(h).double().cpu() - torch.linalg.inv(h64)).abs()
+                   / torch.linalg.inv(h64).abs().max()).max())
+    e_vol = float(((pbc.box_volume(h).double().cpu() - torch.linalg.det(h64).abs())
+                   / torch.linalg.det(h64).abs()).abs().max())
+    check(e_inv < 1e-6 and e_vol < 3e-7, f"box inverse within {e_inv:.1e} and "
+          f"volume within {e_vol:.1e} (relative) of float64")
+
+
+def triclinic_phase(torch, dev):
+    """Phase 8 -> (pipeline, runner, XTC, resident window, launch counts,
+    per-batch device ms of the pair path and the centres)."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.models import TrajectoryAnalysis
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import distances as D
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    say(f"phase 8: triclinic main path, {N_ATOMS} atoms x {N_FRAMES} frames, "
+        "rhombic dodecahedron")
+    xtc = triclinic_xtc(N_FRAMES)
+    offs, _, _, nat = native.xtc_scan(xtc)
+    c0, b9, *_ = native.xtc_read_frames(xtc, offs[:1], nat)
+    h0 = b9[0].reshape(3, 3)
+    say(f"  box rows {h0.tolist()}, volume "
+        f"{abs(np.linalg.det(h0.astype(np.float64))):.1f} nm^3; frame-0 "
+        f"coordinates in [{c0[0].min():.4f}, {c0[0].max():.4f}] nm")
+    state = testing.synthetic_state(c0[0], h0)
+    system = convert.system_from_state(state)
+    pipe = (TrajectoryAnalysis(system, device=dev, triclinic=True)
+            .add_com("Protein", name="com")
+            .add_distance("Protein", "Membrane", com=(True, False), name="dist")
+            .add_rmsd("Protein", reference=system, name="rmsd")
+            .add_min_distance("Peptide", "Membrane", name="mindist")
+            .add_contacts("Peptide", "Membrane", 0.4, name="contacts"))
+    runner = pipe.runner()
+    say(f"  shipped atoms {len(runner.sel)}, wire {runner.wire}, box "
+        f"{runner.engine.box_form}")
+    n_prot, n_mem = testing.synthetic_sizes(N_ATOMS)
+
+    K.reset_launch_counts()
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = runner.run(xtc, batch_size=BATCH)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    clocks = {k: round(sum(v), 4) for k, v in runner.engine.last_stage_seconds.items()}
+    say(f"  streamed passes: {passes[0]:.4f} s (first), {passes[1]:.4f} s "
+        f"= {N_FRAMES / passes[1]:.2f} frames/s; host clocks of the last "
+        f"{clocks}, fetch {runner.engine.last_fetch_seconds:.4f} s")
+    for k in ("com", "dist", "rmsd", "mindist", "contacts"):
+        v = out[k]
+        check(v.shape[0] == N_FRAMES and bool(np.isfinite(v).all()),
+              f"{k}: {v.shape} {v.dtype} finite")
+
+    w = state["mass"][:n_prot]
+    coords, b9s, *_ = native.xtc_read_frames(xtc, offs[:PARITY_FRAMES], nat,
+                                             stop_after=n_prot + n_mem)
+    boxes = b9s.reshape(-1, 3, 3)
+    t0 = time.perf_counter()
+    errs = {"com": 0.0, "dist": 0.0, "rmsd": 0.0}
+    for f in range(PARITY_FRAMES):
+        p, h = coords[f], boxes[f]
+        ca = testing.host_refined_center_triclinic(p[:n_prot], h, w)
+        cb = testing.host_refined_center_triclinic(p[n_prot:], h)
+        # a centre is defined up to a lattice vector: compare minimum images
+        gap = testing.host_min_image_triclinic(out["com"][f] - ca, h)
+        d = testing.host_min_image_triclinic(ca - cb, h)
+        want = testing.host_kabsch_rmsd_triclinic(c0[0][:n_prot], p[:n_prot],
+                                                  h0, h, w)
+        errs["com"] = max(errs["com"], float(np.abs(gap).max()))
+        errs["dist"] = max(errs["dist"], abs(float(out["dist"][f])
+                                             - float(np.sqrt((d * d).sum()))))
+        errs["rmsd"] = max(errs["rmsd"], abs(float(out["rmsd"][f]) - want))
+    say(f"  float64 oracles of com, dist, rmsd over {PARITY_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, e in errs.items():
+        check(e < 2e-3, f"{k} vs triclinic float64 oracle over {PARITY_FRAMES} "
+              f"frames (max err {e:.3e})")
+    for f in range(2):
+        p = coords[f]
+        t0 = time.perf_counter()
+        best, lo, hi = testing.host_pairs_triclinic(p[:min(400, n_prot)],
+                                                    p[n_prot:], boxes[f], 0.4)
+        say(f"  pair oracle frame {f}: {time.perf_counter() - t0:.1f} s")
+        e = abs(float(out["mindist"][f]) - best)
+        check(e < 1e-4, f"mindist frame {f} vs float64 oracle "
+              f"({out['mindist'][f]:.6f} vs {best:.6f})")
+        check(lo <= out["contacts"][f] <= hi,
+              f"contacts frame {f}: {out['contacts'][f]} within the oracle's "
+              f"[{lo}, {hi}] (pairs within 1e-5 nm of the cutoff may go either way)")
+    ortho = testing.host_refined_center(c0[0][:n_prot], np.diag(h0), w)
+    tri = testing.host_refined_center_triclinic(c0[0][:n_prot], h0, w)
+    gap = testing.host_min_image_triclinic(ortho - tri, h0)
+    say(f"  frame-0 COM: orthorhombic treatment of the diagonal {ortho.tolist()}, "
+        f"triclinic oracle {tri.tolist()}, port {out['com'][0].tolist()}")
+    check(float(np.sqrt((gap * gap).sum())) > 1.0,
+          f"the orthorhombic treatment is {np.sqrt((gap * gap).sum()):.3f} nm off "
+          "(> 1 nm): the triclinic checks can fail")
+
+    t0 = time.perf_counter()
+    dt = runner.load_device(xtc, batch_size=BATCH)
+    torch.cuda.synchronize()
+    say(f"  load_device {time.perf_counter() - t0:.4f} s, resident "
+        f"{dt.nbytes / 1e6:.1f} MB ({dt.kind}, {dt.n_frames} frames, boxes "
+        f"{tuple(dt.boxes.shape)})")
+    check(dt.kind == "q16" and dt.box_form == "matrix",
+          "the dodecahedron stays on the q16 wire, box matrices resident")
+    for label, fn in (("run_resident_fused", runner.engine.run_resident_fused),
+                      ("run_resident", runner.engine.run_resident)):
+        t0 = time.perf_counter()
+        res = fn(dt, batch_size=BATCH)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        say(f"  {label}: {t:.4f} s = {N_FRAMES / t:.2f} frames/s")
+        for k in ("com", "dist", "rmsd", "mindist", "contacts"):
+            e = float(np.abs(res[k].astype(np.float64) - out[k]).max())
+            check(e <= 1e-6, f"{label} {k} equals streamed (max diff {e:.1e})")
+    counts = dict(K.launch_counts)
+    no_launches(counts, "triclinic main path (streamed and resident)")
+
+    frames = dt.pos[:BATCH].float() * dt.inv_prec[:BATCH, None, None]
+    hb = dt.boxes[:BATCH]
+    sync_checks(torch, hb, frames, n_prot, n_mem)
+    pep, mem = frames[:, :min(400, n_prot)], frames[:, n_prot:n_prot + n_mem]
+    wt = torch.as_tensor(w, device=dev)
+    piece_ms = {}
+    for k, fn, reps in (
+            ("min_distance_triclinic",
+             lambda: D.min_distance_triclinic(pep, mem, hb), 1),
+            ("contact_count_triclinic",
+             lambda: D.contact_count_triclinic(pep, mem, hb, 0.4), 1),
+            ("center_triclinic protein (masses)",
+             lambda: C.center_triclinic(frames[:, :n_prot], hb, weights=wt), 5),
+            ("center_triclinic membrane", lambda: C.center_triclinic(mem, hb), 5)):
+        piece_ms[k], ev = timed(fn, reps)
+        say(f"  {k}: {piece_ms[k]:.4f} ms device per {BATCH}-frame batch "
+            f"(profiler; {ev:.4f} ms by CUDA events, idle gaps included)")
+    no_launches(dict(K.launch_counts), "phase 8's piece timings")
+    return pipe, runner, xtc, dt, counts, piece_ms
+
+
+def triclinic_observables_phase(torch, dev, main_pipe):
+    """Phase 9 -> (launch counts, its runner, its resident window)."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch.core.dimension import Dimension
+    from groan_rs_tpu_torch.core.shapes import Cylinder
+    from groan_rs_tpu_torch.errors import GroupError
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.models import TrajectoryAnalysis, run_many
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.parallel import FrameEngine
+
+    say(f"phase 9: triclinic observables, full topology, every atom shipped, "
+        f"{BATCH} frames")
+    xtc = triclinic_xtc(BATCH)
+    offs, _, _, nat = native.xtc_scan(xtc)
+    coords, b9s, *_ = native.xtc_read_frames(xtc, offs[:2], nat)
+    boxes = b9s.reshape(-1, 3, 3)
+    h0 = boxes[0]
+    state = testing.synthetic_state(coords[0], h0, topology="full")
+    system = convert.system_from_state(state)
+    span = ((0.0, float(h0[0, 0])), (0.0, float(h0[1, 1])))
+    pipe = testing.add_observables(
+        TrajectoryAnalysis(system, device=dev, triclinic=True), state, None,
+        span=span)
+    runner = pipe.runner(ship="auto")
+    check(runner.sel is None, "ship='auto' ships all atoms (water is touched)")
+    try:
+        TrajectoryAnalysis(system, device=dev, triclinic=True).add_in_shape(
+            "Water", Cylinder(*testing.cylinder_args(np.diag(h0)), Dimension.Z))
+        raised = None
+    except GroupError as e:
+        raised = e.code
+    check(raised == "InvalidSimBox", f"add_in_shape refuses a triclinic pass "
+          f"(GroupError {raised})")
+
+    K.reset_launch_counts()
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = runner.run(xtc, batch_size=BATCH)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    say(f"  streamed passes: {passes[0]:.4f} s (first), {passes[1]:.4f} s "
+        f"= {BATCH / passes[1]:.2f} frames/s")
+    undefined = testing.undefined_sites(native.xtc_read_frames(xtc, offs, nat)[0], nat)
+    for k, v in out.items():
+        if k not in ("times", "steps"):
+            nan = undefined.get(k, np.zeros(v.shape, bool))
+            note = (f" where defined ({int(nan.sum())} items have a zero-length "
+                    "bond in the decoded frame)" if k in undefined else "")
+            check(v.shape[0] == BATCH and bool((np.isfinite(v) | nan).all()),
+                  f"{k}: {v.shape} {v.dtype} finite{note}")
+    t0 = time.perf_counter()
+    errs = testing.observable_errors(out, coords, boxes, state, None, rdf_frames=1)
+    say(f"  triclinic float64 oracles over 2 frames (the RDF on 1) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, (e, bound) in errs.items():
+        check(e <= bound, f"{k} vs triclinic float64 oracle: {e:.3e} (bound {bound:g})")
+
+    t0 = time.perf_counter()
+    dt = runner.load_device(xtc, batch_size=BATCH)
+    torch.cuda.synchronize()
+    say(f"  load_device {time.perf_counter() - t0:.4f} s, resident "
+        f"{dt.nbytes / 1e6:.1f} MB ({dt.kind}, {dt.box_form})")
+    for label, fn in (("run_resident_fused", runner.engine.run_resident_fused),
+                      ("run_resident", runner.engine.run_resident)):
+        t0 = time.perf_counter()
+        res = fn(dt, batch_size=BATCH)
+        torch.cuda.synchronize()
+        say(f"  {label}: {time.perf_counter() - t0:.4f} s")
+        check(all(np.array_equal(np.isnan(res[k]), np.isnan(out[k])) for k in res
+                  if res[k].dtype.kind == "f"), f"{label}: NaN where streamed is")
+        worst = max(float(np.nanmax(np.abs(res[k].astype(np.float64) - out[k])))
+                    for k in res)
+        check(worst <= 1e-6, f"{label} equals streamed (max diff {worst:.1e})")
+
+    fetches = []
+    fetch = FrameEngine.fetch_packed_many
+
+    def counted(sets):
+        fetches.append(len(sets))
+        return fetch(sets)
+
+    FrameEngine.fetch_packed_many = staticmethod(counted)
+    try:
+        many = run_many([pipe, main_pipe], dt, batch_size=BATCH)
+    finally:
+        FrameEngine.fetch_packed_many = staticmethod(fetch)
+    check(fetches == [2], f"run_many made one packed fetch of 2 passes ({fetches})")
+    alone = [runner.run(dt, batch_size=BATCH),
+             main_pipe.runner(ship="all").run(dt, batch_size=BATCH)]
+    for got, want in zip(many, alone):
+        same = set(got) == set(want) and all(
+            np.array_equal(got[k], want[k], equal_nan=want[k].dtype.kind == "f")
+            for k in want)
+        check(same, f"run_many equals run(dt) bit for bit ({len(want)} keys)")
+    counts = dict(K.launch_counts)
+    no_launches(counts, "triclinic observables (streamed, resident, run_many)")
+    return counts, runner, dt
 
 
 def observables_phase(torch, xtc, offs, nat, frame0, box, main_pipe, dev):
@@ -833,20 +1177,14 @@ def main():
 
     # ---- 3. kernels against their twins --------------------------------
     say("phase 3: kernels vs twins")
+    t_phase = time.perf_counter()
     rec = kernel_checks(dev)
+    t_phase = phase_seconds(3, t_phase)
 
     # ---- 4. main path, streamed ---------------------------------------
     say(f"phase 4: streamed main path, {N_ATOMS} atoms x {N_FRAMES} frames")
-    xtc = os.path.join(K.BUILD_DIR, f"smoke_{N_ATOMS}_{N_FRAMES}.xtc")
-    ok = False
-    if os.path.exists(xtc):
-        offs, _, _, nat = native.xtc_scan(xtc)
-        ok = len(offs) == N_FRAMES and nat == N_ATOMS
-    if not ok:
-        t0 = time.perf_counter()
-        os.makedirs(K.BUILD_DIR, exist_ok=True)
-        testing.build_trajectory(xtc, N_ATOMS, N_FRAMES)
-        say(f"  trajectory written in {time.perf_counter() - t0:.1f} s")
+    xtc = cached_xtc(os.path.join(K.BUILD_DIR, f"smoke_{N_ATOMS}_{N_FRAMES}.xtc"),
+                     N_FRAMES, lambda p: testing.build_trajectory(p, N_ATOMS, N_FRAMES))
     offs, _, _, nat = native.xtc_scan(xtc)
     c0, b9, *_ = native.xtc_read_frames(xtc, offs[:1], nat)
     box = b9[0][[0, 4, 8]]
@@ -909,6 +1247,8 @@ def main():
         check(e < 1e-4, f"mindist frame {f} vs float64 oracle "
               f"({out['mindist'][f]:.6f} vs {want:.6f})")
 
+    t_phase = phase_seconds(4, t_phase)
+
     # ---- 5. device-resident re-run -------------------------------------
     say("phase 5: device-resident re-run")
     t0 = time.perf_counter()
@@ -936,6 +1276,8 @@ def main():
           "the pass ships the protein, then the membrane")
     com_cog_checks(torch, dt, w, out["dist"], n_prot, n_mem)
 
+    t_phase = phase_seconds(5, t_phase)
+
     # ---- 6. the kernels ran on the main path ----------------------------
     say(f"phase 6: launches during the main path (phases 4-5) {counts}")
     for k, v in counts.items():
@@ -944,13 +1286,51 @@ def main():
     # ---- 7. the observables pass at full width --------------------------
     obs_counts, orunner, odt = observables_phase(
         torch, xtc, offs, nat, c0[0], box, pipe, dev)
+    t_phase = phase_seconds(7, t_phase)
+
+    # ---- 8. the triclinic main path ----------------------------------------
+    tpipe, trunner, txtc, tdt, tri_counts, piece_ms = triclinic_phase(torch, dev)
+    t_phase = phase_seconds(8, t_phase)
+
+    # ---- 9. the triclinic observables ------------------------------------
+    tobs_counts, tobs_runner, tobs_dt = triclinic_observables_phase(
+        torch, dev, tpipe)
+    t_phase = phase_seconds(9, t_phase)
 
     # ---- where the time goes: one profiled pass of each kind -----------
+    # the triclinic main path over one batch: phase 9's 12-frame file (the
+    # first 12 frames of phase 8's) streamed, and a 12-frame resident window
+    from groan_rs_tpu_torch.parallel import DeviceTrajectory
+
+    one = DeviceTrajectory(tdt.pos[:BATCH], tdt.boxes[:BATCH], tdt.inv_prec[:BATCH],
+                           tdt.times[:BATCH], tdt.steps[:BATCH], tdt.kind,
+                           tdt.box_form)
+    one.sel = tdt.sel
+    busy = {}
     for label, fn in (
             ("streamed", lambda: runner.run(xtc, batch_size=BATCH)),
             ("resident", lambda: runner.run(dt, batch_size=BATCH)),
-            ("observables resident", lambda: orunner.run(odt, batch_size=BATCH))):
-        profile_pass(torch, label, fn)
+            ("observables resident", lambda: orunner.run(odt, batch_size=BATCH)),
+            ("triclinic streamed, one batch",
+             lambda: trunner.run(triclinic_xtc(BATCH), batch_size=BATCH)),
+            ("triclinic resident, one batch", lambda: trunner.run(one, batch_size=BATCH)),
+            ("triclinic observables resident",
+             lambda: tobs_runner.run(tobs_dt, batch_size=BATCH))):
+        if label.startswith("triclinic"):
+            K.reset_launch_counts()
+        busy[label] = profile_pass(torch, label, fn)
+        if label.startswith("triclinic"):
+            no_launches(dict(K.launch_counts), f"profiled {label} pass")
+    dev_s = busy["triclinic resident, one batch"][1]
+    pair_s = (piece_ms["min_distance_triclinic"]
+              + piece_ms["contact_count_triclinic"]) / 1e3
+    ctr_s = (3 * piece_ms["center_triclinic protein (masses)"]
+             + piece_ms["center_triclinic membrane"]) / 1e3
+    say(f"  triclinic resident batch: device compute {dev_s:.4f} s; the pair path "
+        f"(min distance + contacts, profiled alone) {pair_s:.4f} s = "
+        f"{100 * pair_s / dev_s:.1f}%, center_triclinic (3 protein + 1 "
+        f"membrane centres) {ctr_s:.4f} s = {100 * ctr_s / dev_s:.1f}%")
+    phase_seconds("profiles", t_phase)
 
     src = {"bai_breen_estimate": ("groan_rs_tpu_torch/csrc/bai_breen.cu",
                                   "groan_rs_tpu/ops/pallas_kernels.py:159"),
@@ -971,7 +1351,8 @@ def main():
          "pct_of_bound": 100 * rec[k]["bound"][0] / rec[k]["ms"],
          "ms_l2_flushed": rec[k]["ms_l2_flushed"],
          "library_ms": None, "library_none": no_library[k],
-         "shape": rec[k]["shape"], "observables_launches": obs_counts[k]}
+         "shape": rec[k]["shape"], "observables_launches": obs_counts[k],
+         "triclinic_launches": tri_counts[k] + tobs_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

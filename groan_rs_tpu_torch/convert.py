@@ -4,7 +4,8 @@ The state dict is what weights are to a model: everything the analysis
 reads from a System.  Keys:
 
 - `positions`  float32 `[N, 3]` reference coordinates
-- `box`        float32 `(3,)` orthorhombic lengths
+- `box`        float32 `(3,)` orthorhombic lengths or `(3, 3)` box matrix
+               (rows are the box vectors)
 - `mass`       float32 `[N]`;  `has_mass` bool `[N]`
 - `precision`  int (XTC precision of the reference frame)
 - `groups`     `{name: sorted int indices}`
@@ -45,9 +46,10 @@ def system_from_state(state: dict) -> System:
             setattr(topo, attr, np.asarray(state[key], str).reshape(n).copy())
     if state.get("bonds") is not None:
         topo.set_bonds_from_pairs(state["bonds"])
-    box = np.asarray(state["box"], np.float32).reshape(3)
-    s = System(state.get("name", "system"), topo,
-               simbox=SimBox.from_lengths(*map(float, box)), positions=pos)
+    box = np.asarray(state["box"], np.float32)
+    simbox = (SimBox.from_matrix(box) if box.shape == (3, 3)
+              else SimBox.from_lengths(*map(float, box.reshape(3))))
+    s = System(state.get("name", "system"), topo, simbox=simbox, positions=pos)
     s.set_precision(int(state.get("precision", 100)))
     for name, idx in state.get("groups", {}).items():
         s.group_create_from_indices(name, idx)

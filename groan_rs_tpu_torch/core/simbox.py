@@ -1,9 +1,10 @@
-"""Simulation box, orthorhombic lengths only.
+"""Simulation box.
 
 The slice of `groan_rs_tpu.core.simbox.SimBox` the port needs: the 9
 Gromacs components (v1x v2y v3z v1y v1z v2x v2z v3x v3y, GRO order), the
-orthogonality and validity checks, and the `(3,)` length vector the
-kernels take.  Triclinic analysis waits for a later slice (ROADMAP.md).
+orthogonality and validity checks, the `(3,)` length vector the
+orthorhombic kernels take, and the row-major `(3, 3)` box matrix of the
+triclinic path (`to_matrix` / `from_matrix`, rows are the box vectors).
 """
 
 from __future__ import annotations
@@ -37,6 +38,20 @@ class SimBox:
 
     def is_valid(self) -> bool:
         return self.v1x > 0.0 and self.v2y > 0.0 and self.v3z > 0.0
+
+    def to_matrix(self) -> np.ndarray:
+        """Row-major `(3, 3)` float32 matrix; rows are the box vectors."""
+        return np.array([[self.v1x, self.v1y, self.v1z],
+                         [self.v2x, self.v2y, self.v2z],
+                         [self.v3x, self.v3y, self.v3z]], dtype=np.float32)
+
+    @classmethod
+    def from_matrix(cls, m) -> "SimBox":
+        m = np.asarray(m, dtype=np.float64)
+        return cls(float(m[0, 0]), float(m[1, 1]), float(m[2, 2]),
+                   float(m[0, 1]), float(m[0, 2]),
+                   float(m[1, 0]), float(m[1, 2]),
+                   float(m[2, 0]), float(m[2, 1]))
 
     def to_lengths_vec(self) -> np.ndarray:
         """`(3,)` float32 orthogonal box lengths."""

@@ -30,6 +30,11 @@ from . import native
 __all__ = ["FrameBatch", "XtcSource", "TrajReader", "traj_iter"]
 
 
+# (row, column) of each gro-order box component in the row-major matrix
+_GRO_ORDER = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 0), (1, 2), (2, 0),
+              (2, 1))
+
+
 @dataclass
 class FrameBatch:
     """A decoded batch of frames (host numpy)."""
@@ -50,12 +55,18 @@ class FrameBatch:
         """[B, 3] orthogonal box lengths (v1x, v2y, v3z)."""
         return self.boxes9[:, :3]
 
+    def box_matrices(self) -> np.ndarray:
+        """[B, 3, 3] row-major box matrices (rows are the box vectors)."""
+        out = np.zeros((self.boxes9.shape[0], 3, 3), np.float32)
+        for k, (i, j) in enumerate(_GRO_ORDER):
+            out[:, i, j] = self.boxes9[:, k]
+        return out
+
 
 def _xtc_box_to_gro9(box33: np.ndarray) -> np.ndarray:
     """[F, 9] row-major 3x3 (XTC storage) -> gro-order 9-vector."""
     b = box33.reshape(-1, 3, 3)
-    order = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 0), (1, 2), (2, 0), (2, 1)]
-    return np.stack([b[:, i, j] for i, j in order], axis=1).astype(np.float32)
+    return np.stack([b[:, i, j] for i, j in _GRO_ORDER], axis=1).astype(np.float32)
 
 
 class XtcSource:

@@ -2,8 +2,7 @@
 
 Port of `groan_rs_tpu/models/pipeline.py` (`_Idx` :38-75,
 `_hydrogen_mask` :77-103, `TrajectoryAnalysis` :105-882, `step_fn` /
-`runner` / `PipelineRunner` :1057-1300, `run_many` :1488-1544) for
-orthorhombic boxes:
+`runner` / `PipelineRunner` :1057-1300, `run_many` :1488-1544):
 
     pipe = (TrajectoryAnalysis(system)
             .add_com("Protein")
@@ -28,8 +27,18 @@ K1 + K2 kernels, min distance and contacts on K3 (above the pair
 threshold).  Results are float32, except the int32 density-map and
 in-shape counts (as in the JAX package) and the int64 contact counts.
 
-Not ported yet, and refused with an error naming ROADMAP.md: triclinic
-boxes, velocity observables, meshes and hbond specs.
+`TrajectoryAnalysis(system, triclinic=True)` ships `[B, 3, 3]` box
+matrices (`FrameEngine(box="matrix")`) and takes the JAX package's
+triclinic branch of every observable: centres by `center_triclinic`,
+displacements by the exact 27-image minimum image, the pair observables
+by the chunked triclinic pair path, volumes by |det|, box lengths as row
+norms.  It is plain torch: no triclinic step launches K1, K2 or K3.
+`add_in_shape` refuses a triclinic pass, and `add_distance` any dimension
+but XYZ, as in the JAX package.  With `triclinic=False` a triclinic
+system's box is read as its diagonal, as in the JAX package.
+
+Not ported yet, and refused with an error naming ROADMAP.md: velocity
+observables, meshes and hbond specs.
 """
 
 from __future__ import annotations
@@ -130,6 +139,19 @@ def _histogram(bins, weights, n_bins: int, dtype) -> torch.Tensor:
     return out.reshape(nb, n_bins)
 
 
+def _extract_reference_triclinic(reference, group: str, w: torch.Tensor):
+    """The RMSD reference group unwrapped around its triclinic refined COM,
+    and its weighted centroid (JAX `models/pipeline.py:321-328`), on the
+    CPU -> (coords [n, 3], centroid [3])."""
+    box = reference.get_box()
+    if box is None:
+        raise RMSDError("reference system has no simulation box",
+                        code="InvalidSimBox")
+    pos = torch.from_numpy(reference.positions[reference.group_indices(group)])
+    return rmsd_ops.prepare_coords_triclinic(
+        pos, torch.from_numpy(box.to_matrix()), weights=w.cpu())
+
+
 def _extract_reference(reference, group: str):
     """The RMSD reference group shifted so its COM sits at the box centre,
     then wrapped (`groan_rs_tpu/system/rmsd.py:18-40`, `_extract`), in the
@@ -157,12 +179,13 @@ class TrajectoryAnalysis:
     def __init__(self, system, *, device=None, triclinic: bool = False,
                  mesh=None):
         """`device`: where the pass runs ("cuda", "cuda:1" or "cpu"); the
-        default is the current CUDA card, and raises where there is none."""
-        if triclinic:
-            raise ParallelError(f"triclinic=True is {_LATER}")
+        default is the current CUDA card, and raises where there is none.
+        `triclinic=True`: per-frame `[B, 3, 3]` box matrices and the exact
+        triclinic forms of every observable."""
         if mesh is not None:
             raise ParallelError(f"meshes are {_LATER}")
         self.system = system
+        self.triclinic = bool(triclinic)
         self.device = require_cuda() if device is None else as_device(device)
         self._specs = []  # (name, fn(positions, boxes) -> tensor)
         self._handles: list[_Idx] = []
@@ -234,13 +257,18 @@ class TrajectoryAnalysis:
         c_fn = self._center_fn(idx, w)
 
         def fn(pos, boxes):
-            return pbc.min_image(idx.take(pos) - c_fn(pos, boxes)[:, None, :],
-                                 boxes[:, None, :])
+            return pbc.min_image_frames_any(
+                idx.take(pos) - c_fn(pos, boxes)[:, None, :], boxes)
         return fn
 
     def _center_fn(self, idx: _Idx, w=None):
-        def fn(pos, boxes):  # boxes [B, 3]
-            return center_ops.center(idx.take(pos), boxes, weights=w)
+        if self.triclinic:
+            def fn(pos, boxes):  # boxes [B, 3, 3]
+                return center_ops.center_triclinic(idx.take(pos), boxes,
+                                                   weights=w)
+        else:
+            def fn(pos, boxes):  # boxes [B, 3]
+                return center_ops.center(idx.take(pos), boxes, weights=w)
         return fn
 
     # ------------------------------------------------------------- observables
@@ -268,9 +296,18 @@ class TrajectoryAnalysis:
         c2 = self._center_fn(self._register(self._indices(group2)),
                              self._masses(group2) if com2 else None)
         dmask = dim.value
+        if self.triclinic:
+            if dim is not Dimension.XYZ:
+                raise GroupError("triclinic distances support Dimension.XYZ "
+                                 "only", code="InvalidDimension")
 
-        def fn(pos, boxes):
-            return pbc.distance(c1(pos, boxes), c2(pos, boxes), boxes, dmask)
+            def fn(pos, boxes):
+                return pbc.distance_triclinic_frames(c1(pos, boxes),
+                                                     c2(pos, boxes), boxes)
+        else:
+            def fn(pos, boxes):
+                return pbc.distance(c1(pos, boxes), c2(pos, boxes), boxes,
+                                    dmask)
 
         self._specs.append((name or f"distance_{group1}_{group2}", fn))
         return self
@@ -291,25 +328,36 @@ class TrajectoryAnalysis:
                 f"group '{group}' has {ref_idx.shape[0]} atoms in reference "
                 f"but {tgt_idx.shape[0]} in target", code="InconsistentGroup")
         idx = self._register(tgt_idx)
-        ref_coords, ref_center = _extract_reference(reference, group)
+        if self.triclinic:
+            ref_coords, ref_center = _extract_reference_triclinic(
+                reference, group, w)
+            frames_fn = rmsd_ops.rmsd_frames_triclinic
+        else:
+            ref_coords, ref_center = _extract_reference(reference, group)
+            frames_fn = rmsd_ops.rmsd_frames
         refc = ref_coords.to(self.device)
         refctr = ref_center.to(self.device)
 
         def fn(pos, boxes):
-            return rmsd_ops.rmsd_frames(refc, refctr, idx.take(pos), boxes, w)[1]
+            return frames_fn(refc, refctr, idx.take(pos), boxes, w)[1]
 
         self._specs.append((name or f"rmsd_{group}", fn))
         return self
 
     def add_min_distance(self, group1: str, group2: str, name: str | None = None):
         """Minimum PBC distance between two selections per frame -> [F]
-        (the tiled pair kernel K3 above the pair threshold)."""
+        (the tiled pair kernel K3 above the pair threshold; triclinic: the
+        chunked 27-image pair path)."""
         i1 = self._register(self._indices(group1))
         i2 = self._register(self._indices(group2))
-
-        def fn(pos, boxes):
-            return distance_ops.min_distance(i1.take(pos), i2.take(pos),
-                                             boxes[:, None, :])
+        if self.triclinic:
+            def fn(pos, boxes):
+                return distance_ops.min_distance_triclinic(
+                    i1.take(pos), i2.take(pos), boxes)
+        else:
+            def fn(pos, boxes):
+                return distance_ops.min_distance(i1.take(pos), i2.take(pos),
+                                                 boxes[:, None, :])
 
         self._specs.append((name or f"mindist_{group1}_{group2}", fn))
         return self
@@ -319,10 +367,14 @@ class TrajectoryAnalysis:
         """Contact count within `cutoff` per frame -> [F] int64."""
         i1 = self._register(self._indices(group1))
         i2 = self._register(self._indices(group2))
-
-        def fn(pos, boxes):
-            return distance_ops.contact_count(i1.take(pos), i2.take(pos),
-                                              boxes[:, None, :], cutoff)
+        if self.triclinic:
+            def fn(pos, boxes):
+                return distance_ops.contact_count_triclinic(
+                    i1.take(pos), i2.take(pos), boxes, cutoff)
+        else:
+            def fn(pos, boxes):
+                return distance_ops.contact_count(i1.take(pos), i2.take(pos),
+                                                  boxes[:, None, :], cutoff)
 
         self._specs.append((name or f"contacts_{group1}_{group2}", fn))
         return self
@@ -394,7 +446,9 @@ class TrajectoryAnalysis:
         """Per-frame density profile along a box axis -> [F, n_bins]
         (gmx density): the axis is cut into `n_bins` slabs by fractional
         coordinate, so slabs follow the per-frame box; each atom's weight
-        goes into its slab and the sums divide by the slab volume.
+        goes into its slab and the sums divide by the slab volume.  A
+        triclinic pass takes the fractional coordinate from the inverse
+        box matrix and the volume from |det|.
 
         mode: 'number' (atoms/nm^3), 'mass' (kg/m^3: amu/nm^3 times
         1.66053906660) or 'charge' (e/nm^3).  Slab centres sit at
@@ -414,11 +468,17 @@ class TrajectoryAnalysis:
         else:
             raise GroupError(f"unknown density mode '{mode}'", code="InvalidMode")
         n_bins = int(n_bins)
+        triclinic = self.triclinic
 
         def fn(pos, boxes):
             g = idx.take(pos)
-            frac = g[..., ax] / boxes[:, None, ax]
-            vol = torch.prod(boxes, -1)
+            if triclinic:
+                inv = pbc.box_inverse(boxes)                 # [B, 3, 3]
+                frac = torch.einsum("bni,bi->bn", g, inv[:, :, ax])
+                vol = pbc.box_volume(boxes)
+            else:
+                frac = g[..., ax] / boxes[:, None, ax]
+                vol = torch.prod(boxes, -1)
             frac = frac - torch.floor(frac)
             bi = torch.clamp((frac * n_bins).to(torch.int32), 0, n_bins - 1)
             hist = _histogram(bi, w, n_bins, torch.float32)
@@ -467,15 +527,23 @@ class TrajectoryAnalysis:
         return self
 
     def add_box_volume(self, name: str = "box_volume"):
-        """Per-frame box volume Lx*Ly*Lz -> [F] nm^3."""
-        self._specs.append((name, lambda pos, boxes: torch.prod(boxes, -1)))
+        """Per-frame box volume Lx*Ly*Lz (triclinic: |det|) -> [F] nm^3."""
+        if self.triclinic:
+            self._specs.append((name, lambda pos, boxes: pbc.box_volume(boxes)))
+        else:
+            self._specs.append((name, lambda pos, boxes: torch.prod(boxes, -1)))
         return self
 
     def add_box_lengths(self, name: str = "box_lengths"):
         """Per-frame box edge lengths -> [F, 3] nm.  The step returns the
         batch's box tensor itself; the engine copies results that share a
-        staging buffer's storage before it refills the buffer."""
-        self._specs.append((name, lambda pos, boxes: boxes))
+        staging buffer's storage before it refills the buffer.  A
+        triclinic pass gives the norms of the three box vectors."""
+        if self.triclinic:
+            self._specs.append(
+                (name, lambda pos, boxes: torch.sqrt(pbc.norm2(boxes))))
+        else:
+            self._specs.append((name, lambda pos, boxes: boxes))
         return self
 
     def add_total_dipole(self, group: str, name: str | None = None):
@@ -496,7 +564,7 @@ class TrajectoryAnalysis:
 
         def fn(pos, boxes):
             g = idx.take(pos)
-            d = pbc.min_image(g - g.index_select(1, ref), boxes[:, None, :])
+            d = pbc.min_image_frames_any(g - g.index_select(1, ref), boxes)
             return (q[None, :, None] * d).sum(1)
 
         self._specs.append((name or f"total_dipole_{group}", fn))
@@ -547,7 +615,7 @@ class TrajectoryAnalysis:
         n_t = torch.as_tensor(nvec, device=self.device)
 
         def fn(pos, boxes):
-            d = pbc.min_image(ih.take(pos) - ic.take(pos), boxes[:, None, :])
+            d = pbc.min_image_frames_any(ih.take(pos) - ic.take(pos), boxes)
             cos2 = torch.square(d @ n_t) / (d * d).sum(-1)
             return 1.5 * cos2 - 0.5
 
@@ -563,10 +631,11 @@ class TrajectoryAnalysis:
         degrees in [0, 180] (gmx angle); the middle column is the vertex.
         Minimum-image displacements, so PBC-split molecules are right."""
         ia, ib, ic = self._site_columns(triplets, 3, "triplets")
+        triclinic = self.triclinic
 
         def fn(pos, boxes):
             return geometry.angles(ia.take(pos), ib.take(pos), ic.take(pos),
-                                   boxes)
+                                   boxes, triclinic=triclinic)
 
         self._specs.append((name or "angles", fn))
         return self
@@ -576,10 +645,11 @@ class TrajectoryAnalysis:
         a-b-c-d -> [F, K] degrees in (-180, 180], IUPAC convention,
         trans = 180 (gmx angle -type dihedral)."""
         ia, ib, ic, id_ = self._site_columns(quadruplets, 4, "quadruplets")
+        triclinic = self.triclinic
 
         def fn(pos, boxes):
             return geometry.dihedrals(ia.take(pos), ib.take(pos), ic.take(pos),
-                                      id_.take(pos), boxes)
+                                      id_.take(pos), boxes, triclinic=triclinic)
 
         self._specs.append((name or "dihedrals", fn))
         return self
@@ -616,7 +686,13 @@ class TrajectoryAnalysis:
         """Per-frame count of `group` atoms inside a `core.shapes` Sphere,
         Rectangular or Cylinder -> [F] int32, with the shapes' PBC
         semantics (`ops.geometry.inside_shape`).  Any other shape raises
-        ShapeError here, at configuration time."""
+        ShapeError here, at configuration time; a triclinic pass raises
+        GroupError (the shapes' PBC semantics are orthorhombic)."""
+        if self.triclinic:
+            raise GroupError(
+                "shape observables use the shapes' orthorhombic PBC "
+                "semantics; triclinic pipelines are not supported",
+                code="InvalidSimBox")
         geometry.inside_shape(shape, torch.zeros(1, 1, 3), torch.ones(1, 3))
         idx = self._register(self._indices(group))
 
@@ -637,8 +713,8 @@ class TrajectoryAnalysis:
 
     # ------------------------------------------------------------- compile
     def step_fn(self, sel: np.ndarray | None = None):
-        """The composed step `(positions [B, K, 3], boxes [B, 3], mask) ->
-        dict`; `sel` (sorted atom indices) declares the shipped layout —
+        """The composed step `(positions [B, K, 3], boxes [B, 3] or
+        [B, 3, 3], mask) -> dict`; `sel` (sorted atom indices) declares the shipped layout —
         positions[:, k] is atom sel[k]; None = the full system."""
         self._resolve(sel)
         specs = list(self._specs)
@@ -668,7 +744,8 @@ class TrajectoryAnalysis:
         sel = self.used_atoms() if ship == "auto" else None
         if sel is not None and sel.shape[0] >= self.system.get_n_atoms():
             sel = None
-        engine = FrameEngine(self.step_fn(sel), self.device)
+        engine = FrameEngine(self.step_fn(sel), self.device,
+                             box="matrix" if self.triclinic else "lengths")
         return PipelineRunner(self.system, engine, sel, wire)
 
     def run(self, filename, *, batch_size: int = 32, wire: str = "auto",
@@ -694,9 +771,10 @@ class PipelineRunner:
                          batch_size=batch_size)
 
     def _check_layout(self, dt) -> None:
-        """Refuse a DeviceTrajectory shipped with another atom layout: one
-        of the same width would raise no shape error and read the wrong
-        atoms."""
+        """Refuse a DeviceTrajectory shipped with another atom layout or
+        box form: one of the same width would raise no shape error and
+        read the wrong atoms (or read lengths as matrices)."""
+        self.engine.check_box_form(dt)
         if (dt.sel is None) != (self.sel is None) or (
                 dt.sel is not None and not np.array_equal(dt.sel, self.sel)):
             raise ParallelError(

@@ -15,6 +15,13 @@ Positions are `[N, 3]` or `[B, N, 3]` float32 (a frame batch; a
 contiguous-slice view of a larger batch goes into the kernels without a
 copy); `box` is `(3,)`, `[B, 3]` or `[B, 1, 3]`; `mask` and `weights` are
 `[N]`.  An empty selection gives NaN.
+
+`center_triclinic` (`groan_rs_tpu/ops/center.py:83-123`) is plain torch on
+every device, as the JAX function is XLA outside any Pallas kernel: the
+circular mean and the unwrap run on fractional coordinates (period 1 per
+axis), the unwrap as `d - round(d)`.  K2 unwraps with `vector_to`'s
+`floor(d / L + 1/2)`, which differs from `round` at ties, so the
+fractional coordinates do not go through K1 and K2.
 """
 
 from __future__ import annotations
@@ -22,8 +29,11 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .pbc import box_inverse
 
-__all__ = ["estimate_center", "center", "center_naive"]
+__all__ = ["estimate_center", "center", "center_triclinic", "center_naive"]
+
+_TWO_PI = 6.283185307179586
 
 
 def _mask_weights(mask, like):
@@ -53,6 +63,31 @@ def center(positions, box, mask=None, weights=None):
         positions, _mask_weights(mask, positions), box)
     return kernels.bai_breen_refine(
         positions, _combined(mask, weights, positions), box, est)
+
+
+def center_triclinic(positions, box_matrix, mask=None, weights=None):
+    """Refined Bai-Breen centre in a triclinic box: positions `[N, 3]` or
+    `[B, N, 3]`, box_matrix `(3, 3)` or `[B, 3, 3]` (rows are the box
+    vectors) -> `[3]` or `[B, 3]`.  `mask * weights` weighs both the
+    estimate and the mean, as in the JAX function."""
+    positions = torch.as_tensor(positions)
+    h = torch.as_tensor(box_matrix, dtype=positions.dtype,
+                        device=positions.device)
+    w = _combined(mask, weights, positions)
+    if w is None:
+        w = torch.ones(positions.shape[-2], dtype=positions.dtype,
+                       device=positions.device)
+    w = torch.broadcast_to(w, positions.shape[:-1])
+    s = torch.einsum("...ni,...ij->...nj", positions, box_inverse(h))
+    theta = (s - torch.floor(s)) * _TWO_PI
+    wx = w[..., None]
+    xi = (wx * torch.cos(theta)).sum(-2)
+    zeta = (wx * torch.sin(theta)).sum(-2)
+    est = (torch.atan2(-zeta, -xi) + torch.pi) / _TWO_PI  # fractional
+    d = s - est[..., None, :]
+    d = d - torch.round(d)
+    frac = (wx * (est[..., None, :] + d)).sum(-2) / w.sum(-1, keepdim=True)
+    return torch.einsum("...i,...ij->...j", frac, h)
 
 
 def center_naive(positions, mask=None, weights=None):

@@ -8,6 +8,20 @@ Large unmasked selections route to the tiled pair kernel (K3,
 masked ones take the dense path (`distance_matrix`, the JAX package's own
 XLA path as plain torch).  The routing rule and its threshold are the JAX
 package's, so both packages take the same branch on the same input.
+
+Triclinic boxes (`[B, 3, 3]` matrices) take a plain-torch pair path in
+every case: `min_distance_triclinic`, `contact_count_triclinic` and
+`pair_distance_histogram` with matrix boxes.  The JAX package builds the
+dense `[B, N, M, 27, 3]` candidate tensor there and leaves it to XLA's
+fusion; here the rows of the first group go in chunks of at most
+`chunk_pairs` pairs (`_pair_distances`), and each chunk's 27 images are
+visited with a running minimum of |d|^2 (`ops.pbc.min_image_norm2_frames`),
+so the largest tensor of a chunk is `[B, c, M, 3]`: 192 MB at the
+default 2^24 pairs, with five such tensors alive at once (~1.2 GB with
+the planes of `min_image_norm2_frames`).  At the 1M-atom smoke's
+400 x 300,000 pairs and 12 frames that is four rows a chunk; at 2^22 (one
+row) ~100k small kernels per observable and batch left an H100 36-48%
+idle (PERF.md).
 """
 
 from __future__ import annotations
@@ -18,10 +32,14 @@ import numpy as np
 import torch
 
 from . import kernels
-from .pbc import min_image
+from .pbc import box_inverse, box_volume, min_image, min_image_norm2_frames
 
 __all__ = ["distance_matrix", "min_distance", "contact_count",
+           "min_distance_triclinic", "contact_count_triclinic",
            "pair_distance_histogram", "rdf_normalization"]
+
+# pairs per chunk of the pair paths that build distances in torch
+_CHUNK_PAIRS = 1 << 24
 
 # at or above this many pairs (N*M) unmasked calls route to K3; below it the
 # dense path (and masks) apply — GROAN_PAIR_TILE_THRESHOLD as in groan_rs_tpu
@@ -96,16 +114,57 @@ def min_distance(a, b, box, mask_a=None, mask_b=None):
     return d.amin(dim=(-2, -1))
 
 
+def _pair_distances(a, b, box, chunk_pairs: int):
+    """Yield `(i0, d)`: the PBC distances `d` `[B, c, M]` between rows
+    i0..i0+c of `a` `[B, N, 3]` and all of `b` `[B, M, 3]`, with c chosen
+    so that a chunk holds at most `chunk_pairs` pairs.  `box` `[B, 3]`
+    lengths (per-axis minimum image) or `[B, 3, 3]` matrices (the exact
+    27-image search); `ndim` decides."""
+    nb, n, m = a.shape[0], a.shape[1], b.shape[1]
+    box = _box_rows(box, a)
+    triclinic = box.dim() == 3
+    hinv = box_inverse(box) if triclinic else None
+    step = max(1, chunk_pairs // max(1, nb * m))
+    for i0 in range(0, n, step):
+        rows = a[:, i0:i0 + step]
+        if not triclinic:
+            yield i0, distance_matrix(rows, b, box)
+            continue
+        d = (rows[:, :, None, :] - b[:, None, :, :]).reshape(nb, -1, 3)
+        n2 = min_image_norm2_frames(d, box, hinv)
+        yield i0, torch.sqrt(n2).reshape(nb, rows.shape[1], m)
+
+
+def min_distance_triclinic(a, b, boxes, chunk_pairs: int = _CHUNK_PAIRS):
+    """Minimum exact triclinic minimum-image distance between `[B, N, 3]`
+    and `[B, M, 3]` per frame, boxes `[B, 3, 3]` -> `[B]`."""
+    best = torch.full((a.shape[0],), torch.inf, dtype=a.dtype, device=a.device)
+    for _, d in _pair_distances(a, b, boxes, chunk_pairs):
+        best = torch.minimum(best, d.amin(dim=(1, 2)))
+    return best
+
+
+def contact_count_triclinic(a, b, boxes, cutoff: float,
+                            chunk_pairs: int = _CHUNK_PAIRS):
+    """Pairs within `cutoff` (distance < cutoff) per frame, exact
+    triclinic minimum image, boxes `[B, 3, 3]` -> `[B]` int64."""
+    cnt = torch.zeros(a.shape[0], dtype=torch.int64, device=a.device)
+    for _, d in _pair_distances(a, b, boxes, chunk_pairs):
+        cnt += (d < cutoff).sum(dim=(1, 2))
+    return cnt
+
+
 def pair_distance_histogram(a, b, box, r_max: float, n_bins: int,
                             exclude_self: bool = False,
-                            chunk_pairs: int = 1 << 24):
+                            chunk_pairs: int = _CHUNK_PAIRS):
     """Per-frame histogram of PBC pair distances in (0, r_max] ->
     `[B, n_bins]` int64 counts (the JAX package returns int32).
 
-    a `[B, N, 3]`, b `[B, M, 3]`, box `[B, 3]`.  Bin k counts pairs with
-    distance in (k*dr, (k+1)*dr], dr = r_max / n_bins: the bin is
-    `ceil(d / dr) - 1`, valid where d > 0 and the bin is in range.
-    `exclude_self=True` drops the diagonal i == j (a same-group RDF).
+    a `[B, N, 3]`, b `[B, M, 3]`, box `[B, 3]` lengths or `[B, 3, 3]`
+    triclinic matrices.  Bin k counts pairs with distance in
+    (k*dr, (k+1)*dr], dr = r_max / n_bins: the bin is `ceil(d / dr) - 1`,
+    valid where d > 0 and the bin is in range.  `exclude_self=True` drops
+    the diagonal i == j (a same-group RDF).
 
     The JAX form builds the `[B, N, M]` matrix and relies on XLA fusing it
     away; here the rows of `a` go in chunks of at most `chunk_pairs`
@@ -113,21 +172,19 @@ def pair_distance_histogram(a, b, box, r_max: float, n_bins: int,
     integer `scatter_add_` on a flat `frame * n_bins + bin` index (exact
     under atomics); invalid pairs go to a spill region indexed by the `b`
     atom, which keeps them off a single hot address and is dropped."""
-    nb, n, m = a.shape[0], a.shape[1], b.shape[1]
-    box = _box_rows(box, a)
+    nb, m = a.shape[0], b.shape[1]
     dev = a.device
     n_bins = int(n_bins)
     # a tensor divisor: CUDA divides by a Python scalar as a multiply by
-    # its reciprocal, which rounds bin edges unlike the JAX division
-    dr = torch.tensor(r_max / n_bins, dtype=torch.float32, device=dev)
+    # its reciprocal, which rounds bin edges unlike the JAX division (made
+    # by a fill on the device: a copy from the host would synchronise)
+    dr = torch.full((), r_max / n_bins, dtype=torch.float32, device=dev)
     total = nb * n_bins
     spill = total + torch.arange(m, device=dev) % 4096
     base = (torch.arange(nb, device=dev) * n_bins)[:, None, None]
     counts = torch.zeros(total + min(m, 4096), dtype=torch.int64, device=dev)
     ones = torch.ones((), dtype=torch.int64, device=dev)
-    step = max(1, chunk_pairs // max(1, nb * m))
-    for i0 in range(0, n, step):
-        d = distance_matrix(a[:, i0:i0 + step], b, box)   # [B, c, M]
+    for i0, d in _pair_distances(a, b, box, chunk_pairs):   # d [B, c, M]
         idx = torch.ceil(d / dr).to(torch.int32) - 1
         valid = (d > 0.0) & (idx >= 0) & (idx < n_bins)
         if exclude_self:
@@ -142,12 +199,14 @@ def rdf_normalization(box_lengths, n_a: int, n_b: int, r_max: float,
                       n_bins: int, exclude_self: bool = False):
     """Ideal-gas shell counts that turn a pair histogram into g(r):
     `n_pairs * V_shell_k / V_box` per frame, `[B, n_bins]` float32 for
-    `[B, 3]` box lengths."""
+    `[B, 3]` box lengths or `[B, 3, 3]` box matrices (volume |det|).
+    `ndim` decides, as in the JAX function: a shape test could not tell
+    three frames of lengths from one matrix."""
     dr = r_max / n_bins
     edges = np.arange(n_bins + 1) * dr
     shell = 4.0 / 3.0 * np.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
     b = torch.as_tensor(box_lengths, dtype=torch.float32)
-    vol = torch.prod(b, dim=-1)
+    vol = box_volume(b) if b.dim() >= 3 else torch.prod(b, dim=-1)
     n_pairs = n_a * n_b - (n_a if exclude_self else 0)
     shell_t = torch.as_tensor(shell, dtype=torch.float32, device=b.device)
     return n_pairs * shell_t / vol[..., None]

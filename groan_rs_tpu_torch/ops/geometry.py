@@ -1,7 +1,8 @@
 """Bond angles, dihedrals and shape membership, batched over frames.
 
-Port of `groan_rs_tpu/ops/geometry.py:33-130` for orthorhombic boxes.
-Points are `[B, K, 3]` float32 tensors, boxes `[B, 3]` lengths.
+Port of `groan_rs_tpu/ops/geometry.py:33-130`.  Points are `[B, K, 3]`
+float32 tensors, boxes `[B, 3]` lengths, or `[B, 3, 3]` box matrices for
+`angles` and `dihedrals` with `triclinic=True`.
 
 - `angles`: degrees in [0, 180] as atan2(|v x w|, v.w), exact near 0 and
   180 where the acos of a clamped dot is not;
@@ -11,7 +12,8 @@ Points are `[B, K, 3]` float32 tensors, boxes `[B, 3]` lengths.
   strict `<`, Rectangular and Cylinder inclusive `<=`, oriented axis
   distances folded to [0, L).
 
-Every displacement is the per-axis minimum image (`ops.pbc.min_image`).
+Every displacement is the per-axis minimum image (`ops.pbc.min_image`),
+or the exact triclinic one (`ops.pbc.min_image_triclinic_frames`).
 The float64 oracles of angles and dihedrals are in `testing.py`.
 """
 
@@ -22,33 +24,36 @@ import torch
 
 from ..core.shapes import AXIS, Cylinder, Rectangular, Sphere
 from ..errors import ShapeError
-from .pbc import min_image
+from .pbc import min_image, min_image_triclinic_frames
 
 __all__ = ["angles", "dihedrals", "inside_shape"]
 
 
-def _disp(a, b, boxes):
-    """Minimum-image a - b for `[B, K, 3]` points and `[B, 3]` boxes."""
+def _disp(a, b, boxes, triclinic):
+    """Minimum-image a - b for `[B, K, 3]` points and `[B, 3]` boxes (or
+    `[B, 3, 3]` matrices when `triclinic`)."""
+    if triclinic:
+        return min_image_triclinic_frames(a - b, boxes)
     return min_image(a - b, boxes[:, None, :])
 
 
-def angles(a, b, c, boxes):
+def angles(a, b, c, boxes, *, triclinic: bool = False):
     """Angle a-b-c (b the vertex) per frame and site -> `[B, K]` degrees."""
-    va = _disp(a, b, boxes)
-    vc = _disp(c, b, boxes)
+    va = _disp(a, b, boxes, triclinic)
+    vc = _disp(c, b, boxes, triclinic)
     cross = torch.linalg.cross(va, vc, dim=-1)
     sin = torch.sqrt((cross * cross).sum(-1))
     cos = (va * vc).sum(-1)
     return torch.rad2deg(torch.atan2(sin, cos))
 
 
-def dihedrals(a, b, c, d, boxes):
+def dihedrals(a, b, c, d, boxes, *, triclinic: bool = False):
     """Dihedral over the chain a-b-c-d per frame and site -> `[B, K]`
     signed degrees: with b1 = b-a, b2 = c-b, b3 = d-c, phi =
     atan2((b1 x b2) x (b2 x b3) . b2/|b2|, (b1 x b2).(b2 x b3))."""
-    b1 = _disp(b, a, boxes)
-    b2 = _disp(c, b, boxes)
-    b3 = _disp(d, c, boxes)
+    b1 = _disp(b, a, boxes, triclinic)
+    b2 = _disp(c, b, boxes, triclinic)
+    b3 = _disp(d, c, boxes, triclinic)
     n1 = torch.linalg.cross(b1, b2, dim=-1)
     n2 = torch.linalg.cross(b2, b3, dim=-1)
     b2n = b2 / torch.linalg.vector_norm(b2, dim=-1, keepdim=True)

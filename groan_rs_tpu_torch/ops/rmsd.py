@@ -11,6 +11,10 @@ Port of `groan_rs_tpu/ops/rmsd.py:47-153` (reference `src/system/rmsd.rs`):
   RMSD = sqrt(sum w |R^T p_c - q_c|^2 / sum w) (rmsd.rs:547-604).
 - `rmsd_frames` — RMSD of a `[B, n, 3]` batch against a prepared
   reference.
+- `prepare_coords_triclinic` / `rmsd_frames_triclinic` (`:210-255`) — the
+  triclinic forms: every atom unwrapped around the triclinic refined COM
+  by the exact minimum image (plain torch, no kernel), then the weighted
+  centroid and the same `kabsch`.
 
 The covariance and the rotated-difference products are small einsums,
 which the JAX package left to XLA outside any Pallas kernel; TF32 is off
@@ -23,10 +27,11 @@ from __future__ import annotations
 import torch
 
 from .. import backend as _backend  # noqa: F401  (TF32 off before any product)
-from .center import center
-from .pbc import wrap
+from .center import center, center_triclinic
+from .pbc import min_image_triclinic, min_image_triclinic_frames, wrap
 
-__all__ = ["prepare_coords", "kabsch", "rmsd_frames"]
+__all__ = ["prepare_coords", "kabsch", "rmsd_frames",
+           "prepare_coords_triclinic", "rmsd_frames_triclinic"]
 
 
 def prepare_coords(positions, box, mask=None, weights=None):
@@ -106,4 +111,44 @@ def rmsd_frames(ref_prepared, ref_center, frames, boxes, w, mask=None):
     w_eff = w if mask is None else torch.as_tensor(w) * torch.as_tensor(mask)
     r, _, rms = kabsch(ref_prepared[None, ...], tgt, w_eff,
                        ref_center[None, :], tgt_center)
+    return r, rms
+
+
+def _weights(w, mask, like):
+    w = (torch.ones(like.shape[-2], dtype=like.dtype, device=like.device)
+         if w is None else torch.as_tensor(w, dtype=like.dtype, device=like.device))
+    if mask is not None:
+        w = w * torch.as_tensor(mask, device=like.device).to(like.dtype)
+    return w
+
+
+def prepare_coords_triclinic(positions, box_matrix, mask=None, weights=None):
+    """Triclinic analogue of `prepare_coords` for one structure: positions
+    `[n, 3]`, box_matrix `(3, 3)`.  Every atom is unwrapped around the
+    triclinic refined COM.  Returns (unwrapped `[n, 3]`, weighted
+    centroid `[3]`)."""
+    positions = torch.as_tensor(positions)
+    com = center_triclinic(positions, box_matrix, mask=mask, weights=weights)
+    unwrapped = com[None, :] + min_image_triclinic(positions - com[None, :],
+                                                   box_matrix)
+    w = _weights(weights, mask, positions)
+    centroid = (w[:, None] * unwrapped).sum(0) / w.sum()
+    return unwrapped, centroid
+
+
+def rmsd_frames_triclinic(ref_prepared, ref_centroid, frames, boxes, w,
+                          mask=None):
+    """RMSD of a `[B, n, 3]` batch with per-frame `[B, 3, 3]` boxes against
+    a reference from `prepare_coords_triclinic` -> (rotations `[B, 3, 3]`,
+    rmsd `[B]`)."""
+    frames = torch.as_tensor(frames)
+    w = torch.as_tensor(w, dtype=frames.dtype, device=frames.device)
+    w_eff = _weights(w, mask, frames)
+    com = center_triclinic(frames, boxes, mask=mask, weights=w)
+    tgt = com[:, None, :] + min_image_triclinic_frames(frames - com[:, None, :],
+                                                       boxes)
+    wb = torch.broadcast_to(w_eff, tgt.shape[:-1])
+    cq = (wb[..., None] * tgt).sum(-2) / wb.sum(-1, keepdim=True)
+    r, _, rms = kabsch(torch.as_tensor(ref_prepared)[None, ...], tgt, w_eff,
+                       torch.as_tensor(ref_centroid)[None, :], cq)
     return r, rms

@@ -4,11 +4,14 @@ Port of `groan_rs_tpu/parallel/engine.py` (`DeviceTrajectory` :51-91,
 `FrameEngine` :93-212, `_pad` :214, `run` :410-569, the resident passes
 :723-1016) for the f32 and q16 wires.
 
-`step_fn(positions [B, K, 3] float32, boxes [B, 3], frame_mask [B]) ->
-dict of [B, ...] tensors` runs once per batch.  A q16 batch ships raw
-int16 coordinates (6 B per atom) and is dequantized on the device as
-`q.float() * inv_prec[:, None, None]` — the multiply by the reciprocal,
-never a division, which is bit-identical to the float decode.
+`step_fn(positions [B, K, 3] float32, boxes, frame_mask [B]) -> dict of
+[B, ...] tensors` runs once per batch.  `boxes` are `[B, 3]` lengths, or
+`[B, 3, 3]` row-major box matrices for an engine built with
+`box="matrix"` (the triclinic pass, JAX `engine.py:120-128`).  A q16
+batch ships raw int16 coordinates (6 B per atom) and is dequantized on
+the device as `q.float() * inv_prec[:, None, None]` — the multiply by
+the reciprocal, never a division, which is bit-identical to the float
+decode.
 
 Streamed `run` on CUDA: each batch's host arrays are written into one of
 two pinned staging buffers and copied to the device on a side stream;
@@ -51,9 +54,11 @@ class DeviceTrajectory:
     with no file I/O and no host-to-device copy.  Dequantization on use is
     bit-identical to the streamed q16 wire."""
 
-    def __init__(self, pos, boxes, inv_prec, times, steps, kind):
+    def __init__(self, pos, boxes, inv_prec, times, steps, kind,
+                 box_form="lengths"):
         self.pos = pos            # device [F, K, 3] int16 (q16) or float32
-        self.boxes = boxes        # device [F, 3] float32 lengths
+        self.boxes = boxes        # device [F, 3] lengths or [F, 3, 3] matrices
+        self.box_form = box_form  # "lengths" | "matrix"
         self.inv_prec = inv_prec  # device [F] float32 (ones for f32)
         self.times = times        # host [F]
         self.steps = steps        # host [F]
@@ -70,13 +75,14 @@ class DeviceTrajectory:
                    for t in (self.pos, self.boxes, self.inv_prec))
 
 
-def _host_arrays(fb):
+def _host_arrays(fb, box_form):
     """One FrameBatch's host arrays in wire form -> (kind, dict)."""
     kind = fb.wire
     if kind not in ("f32", "q16"):
         raise ParallelError(f"unsupported wire '{kind}' (f32 or q16)")
+    boxes = fb.box_matrices() if box_form == "matrix" else fb.box_lengths()
     arrs = {"pos": np.ascontiguousarray(fb.positions),
-            "boxes": np.ascontiguousarray(fb.box_lengths(), np.float32)}
+            "boxes": np.ascontiguousarray(boxes, np.float32)}
     if kind == "q16":
         arrs["inv"] = np.float32(1.0) / np.asarray(fb.precisions, np.float32)
     return kind, arrs
@@ -124,8 +130,13 @@ class FrameEngine:
     """Runs a per-batch analysis step over trajectory batches on one
     device (CPU or one CUDA card)."""
 
-    def __init__(self, step_fn, device):
+    def __init__(self, step_fn, device, box: str = "lengths"):
+        """`box`: "lengths" ships `[B, 3]` box lengths to the step,
+        "matrix" `[B, 3, 3]` box matrices."""
+        if box not in ("lengths", "matrix"):
+            raise ParallelError(f"unknown box mode '{box}' (lengths or matrix)")
         self.device = as_device(device)
+        self.box_form = box
         self._user_step = step_fn
         # host clocks of the most recent streamed pass, per batch: time
         # blocked on the decoder, staging (pinned fill + copy enqueue) and
@@ -174,7 +185,7 @@ class FrameEngine:
             if fb is None:
                 break
             t0 = _pc()
-            kind, arrs = _host_arrays(fb)
+            kind, arrs = _host_arrays(fb, self.box_form)
             b = arrs["pos"].shape[0]
             b_pad = b if b_pad is None else max(b_pad, b)
             slot = self._slot_for(slots, i, arrs, b_pad, compute)
@@ -216,7 +227,7 @@ class FrameEngine:
         device (int16 when every batch came over the q16 wire)."""
         pos, boxes, inv, times, steps, kinds = [], [], [], [], [], set()
         for fb in batches:
-            kind, arrs = _host_arrays(fb)
+            kind, arrs = _host_arrays(fb, self.box_form)
             kinds.add(kind)
             pos.append(torch.from_numpy(arrs["pos"]).to(self.device))
             boxes.append(torch.from_numpy(arrs["boxes"]).to(self.device))
@@ -235,7 +246,16 @@ class FrameEngine:
                            for q, v in zip(pos, inv)])
             iv = torch.ones(p.shape[0], dtype=torch.float32, device=self.device)
         return DeviceTrajectory(p, torch.cat(boxes), iv, np.concatenate(times),
-                                np.concatenate(steps), out_kind)
+                                np.concatenate(steps), out_kind, self.box_form)
+
+    def check_box_form(self, dt: DeviceTrajectory) -> None:
+        """Refuse a window shipped with the other box form: the step would
+        read `[F, 3]` lengths as matrices or the reverse."""
+        if dt.box_form != self.box_form:
+            raise ParallelError(
+                f"this DeviceTrajectory holds box {dt.box_form}, the pass "
+                f"takes box {self.box_form}; load it through a runner of the "
+                "same box form (triclinic=True ships matrices)")
 
     def _resident_batch(self, dt, f0, f1, b_pad):
         """Frames [f0, f1) of `dt` as step inputs, views where possible;
@@ -260,6 +280,7 @@ class FrameEngine:
         fetch.  `fetch=False` returns the device results unfetched as
         `(per-batch dicts, frames kept per batch)`, for
         `fetch_packed_many` (`models.pipeline.run_many`)."""
+        self.check_box_form(dt)
         outs, trims = [], []
         for f0 in range(0, dt.n_frames, batch_size):
             f1 = min(f0 + batch_size, dt.n_frames)
@@ -276,6 +297,7 @@ class FrameEngine:
         one packed fetch (`engine.py:917-986` of the JAX package).  The
         fixed slab shape is what a CUDA-graph capture of the loop needs;
         the capture itself is later work (ROADMAP.md)."""
+        self.check_box_form(dt)
         n = dt.n_frames
         b = min(batch_size, n)
         outs, trims = [], []

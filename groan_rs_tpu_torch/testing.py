@@ -14,6 +14,16 @@ references (`bench.py:122-157`):
 `center_jump_bound` says how far a refined centre may move between two
 estimates through atoms that the unwrap puts into another image.
 
+Triclinic oracles (`(3, 3)` row-major box matrices, rows the box
+vectors), float64: `host_min_image_triclinic` (fractional round, then the
+shortest of the 27 neighbouring images; the tests hold it against a
+125-image search), `host_refined_center_triclinic` (the circular mean and
+unwrap in fractional coordinates), `host_kabsch_rmsd_triclinic`,
+`host_pairs_triclinic` (min distance and contact-count bounds).  The
+observable oracles below take a box matrix wherever they take a box
+(`_mi`, `_to_center`), and `observable_errors` switches to them for
+`[F, 3, 3]` boxes.
+
 The rest are written from the formulas of the observables' docstrings in
 `groan_rs_tpu/models/pipeline.py` and `ops/geometry.py`, one frame at a
 time: `host_gyration`, `host_principal`, `host_dipole`,
@@ -33,6 +43,8 @@ multi-frame XTC written with this package's native codec.  Everything is
 made from fixed seeds.  `synthetic_state(..., topology="full")` adds
 charges, bonds, element symbols, atom names, a Water group and site
 tables (`synthetic_layout` describes the layout it follows).
+`build_trajectory_triclinic` writes the same layout in an xy-square
+rhombic dodecahedron, the protein split by the cell's faces.
 """
 
 from __future__ import annotations
@@ -51,6 +63,9 @@ __all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host
            "add_observables", "observable_errors", "undefined_sites",
            "synthetic_sizes",
            "synthetic_layout", "build_trajectory", "synthetic_state",
+           "host_min_image_triclinic", "host_refined_center_triclinic",
+           "host_kabsch_rmsd_triclinic", "host_pairs_triclinic",
+           "dodecahedron", "put_atoms_in_box", "build_trajectory_triclinic",
            "REFINE_TIE_LENGTHS", "REFINE_TIE_KS", "refine_tie_sets",
            "refine_tie_atoms"]
 
@@ -125,6 +140,192 @@ def host_min_distance(a, b, box, chunk: int = 16):
         d -= box * np.round(d / box)
         best = min(best, float(np.sqrt((d * d).sum(-1).min())))
     return best
+
+
+# ------------------------------------------------------- triclinic oracles
+
+_SHIFTS27 = np.array([[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+                     for k in (-1, 0, 1)], np.float64)
+
+
+def _vec_mat(v, h):
+    """Row vectors `v` [..., 3] times box matrices `h` ((3, 3) or
+    broadcastable [..., 3, 3])."""
+    if h.ndim == 2:
+        return v @ h
+    return np.einsum("...i,...ij->...j", v, h)
+
+
+def host_min_image_triclinic(d, h):
+    """Float64 exact minimum image of displacements `d` [..., 3] in the box
+    matrix `h` ((3, 3) or broadcastable [..., 3, 3]): round the fractional
+    coordinates, then keep the shortest of the 27 neighbouring images (the
+    first of equals)."""
+    d = np.asarray(d, np.float64)
+    h = np.asarray(h, np.float64)
+    s = _vec_mat(d, np.linalg.inv(h))
+    d0 = d - _vec_mat(np.round(s), h)
+    best = best_v = None
+    for k in _SHIFTS27:
+        c = d0 + _vec_mat(k, h)
+        n2 = (c * c).sum(-1)
+        if best is None:
+            best, best_v = n2, c
+            continue
+        take = n2 < best
+        best = np.where(take, n2, best)
+        best_v = np.where(take[..., None], c, best_v)
+    return best_v
+
+
+def host_refined_center_triclinic(p, h, w=None):
+    """Float64 refined centre of `p` [N, 3] in the box matrix `h`: the
+    (weighted) circular mean of the fractional coordinates, every atom
+    unwrapped around it as d - round(d), the weighted mean mapped back."""
+    p = np.asarray(p, np.float64)
+    h = np.asarray(h, np.float64)
+    w = np.ones(p.shape[0]) if w is None else np.asarray(w, np.float64)
+    s = p @ np.linalg.inv(h)
+    theta = (s - np.floor(s)) * 2 * np.pi
+    est = (np.arctan2(-(w[:, None] * np.sin(theta)).sum(0),
+                      -(w[:, None] * np.cos(theta)).sum(0)) + np.pi) / (2 * np.pi)
+    d = s - est
+    d -= np.round(d)
+    return ((w[:, None] * (est + d)).sum(0) / w.sum()) @ h
+
+
+def host_kabsch_rmsd_triclinic(ref, p, h_ref, h, w):
+    """Float64 Kabsch RMSD in triclinic boxes: the reference `ref` [n, 3]
+    and the frame `p` [n, 3] each unwrapped around its refined centre of
+    mass (`h_ref`, `h` their box matrices), centred on their weighted
+    centroids; the rotation by SVD of the unweighted covariance with the
+    determinant sign fix (as `ops.rmsd.kabsch` and rmsd.rs take it), the
+    RMSD mass-weighted."""
+    w = np.asarray(w, np.float64)
+
+    def prepared(x, box):
+        com = host_refined_center_triclinic(x, box, w)
+        u = com + host_min_image_triclinic(np.asarray(x, np.float64) - com, box)
+        return u - (w[:, None] * u).sum(0) / w.sum()
+
+    pc, qc = prepared(ref, h_ref), prepared(p, h)
+    u, _, vt = np.linalg.svd(pc.T @ qc)
+    sign = np.sign(np.linalg.det(vt.T @ u.T))
+    rot = vt.T @ np.diag([1.0, 1.0, sign]) @ u.T
+    return float(np.sqrt((w * ((pc @ rot.T - qc) ** 2).sum(-1)).sum() / w.sum()))
+
+
+def _min_norm2_triclinic(d, h):
+    """Float64 |exact minimum image|^2 of displacements `d` [..., 3] in one
+    box matrix `h`: as `host_min_image_triclinic`, keeping only the
+    squared length, built on x, y, z planes (the pair oracles' form)."""
+    h = np.asarray(h, np.float64)
+    d0 = d - np.round(d @ np.linalg.inv(h)) @ h
+    x, y, z = (np.ascontiguousarray(d0[..., i]) for i in range(3))
+    best = np.full(x.shape, np.inf)
+    n2, c = np.empty_like(x), np.empty_like(x)
+    for t in _SHIFTS27 @ h:
+        np.add(x, t[0], out=c)
+        np.multiply(c, c, out=n2)
+        np.add(y, t[1], out=c)
+        c *= c
+        n2 += c
+        np.add(z, t[2], out=c)
+        c *= c
+        n2 += c
+        np.minimum(best, n2, out=best)
+    return best
+
+
+def host_pairs_triclinic(a, b, h, cutoff: float, tol: float = 1e-5,
+                         chunk: int = 4):
+    """Float64 exact triclinic minimum distance between `a` [N, 3] and `b`
+    [M, 3], and bounds `(lo, hi)` of the pairs closer than `cutoff`: a pair
+    within `tol` of the cutoff counts in `hi` only."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    best, lo, hi = np.inf, 0, 0
+    for i0 in range(0, a.shape[0], chunk):
+        r = np.sqrt(_min_norm2_triclinic(a[i0:i0 + chunk, None, :] - b[None], h))
+        best = min(best, float(r.min()))
+        lo += int((r < cutoff - tol).sum())
+        hi += int((r < cutoff + tol).sum())
+    return best, lo, hi
+
+
+def dodecahedron(d: float = 23.57) -> np.ndarray:
+    """Float32 box matrix of the xy-square rhombic dodecahedron of image
+    distance `d`: a = (d, 0, 0), b = (0, d, 0), c = (d/2, d/2, d sqrt2/2);
+    volume sqrt2/2 d^3 (GROMACS `editconf -bt dodecahedron`)."""
+    return np.array([[d, 0.0, 0.0], [0.0, d, 0.0],
+                     [d / 2, d / 2, d * np.sqrt(2.0) / 2]], np.float32)
+
+
+def put_atoms_in_box(pos, h):
+    """Wrap float32 `pos` [N, 3] into the diagonal brick of the
+    lower-triangular box `h`, as GROMACS's `put_atoms_in_box` does: shift
+    by c to bring z into [0, c_z), then by b for y, then by a for x.  Every
+    coordinate then lies in [0, h_ii), which keeps XTC integers small."""
+    pos = np.asarray(pos, np.float32).copy()
+    h = np.asarray(h, np.float32)
+    for ax in (2, 1, 0):
+        k = np.floor(pos[:, ax] / h[ax, ax])
+        pos -= k[:, None].astype(np.float32) * h[ax]
+        # rounding may leave a coordinate at h_ii or a hair below 0
+        pos[pos[:, ax] >= h[ax, ax]] -= h[ax]
+        pos[pos[:, ax] < 0] += h[ax]
+    return pos
+
+
+def build_trajectory_triclinic(path, n_atoms: int, n_frames: int,
+                               d: float = 23.57, precision: float = 1000.0):
+    """Write the synthetic layout in `dodecahedron(d)` to `path`
+    (atomically) -> (frame-0 positions float32 [N, 3], box matrix float32
+    (3, 3)).  The protein blob sits on a cell corner and the membrane slab
+    on the plane z = 0 through it, so the cell's faces split both; the
+    water fills the cell; every frame
+    drifts as `build_trajectory`'s and is wrapped by `put_atoms_in_box`.
+    At d = 23.57 the cell holds the 21 nm cube's volume."""
+    n_prot, n_mem = synthetic_sizes(n_atoms)
+    rng = np.random.default_rng(43)
+    h = dodecahedron(d)
+    brick = np.diag(h).astype(np.float32)
+    pos = np.empty((n_atoms, 3), np.float32)
+    sigma = max(1.0, (n_prot / 100.0) ** (1.0 / 3.0) / 2.0)
+    prot = rng.normal(size=(n_prot, 3)).astype(np.float32) * sigma
+    pos[:n_prot] = prot[_cell_order(prot)]
+    lip_sz = LIPID_SIZE
+    n_lip = (n_mem + lip_sz - 1) // lip_sz
+    heads = rng.uniform(0, 1, size=(n_lip, 3)).astype(np.float32) * brick
+    heads[:, 2] = (heads[:, 2] / brick[2] - 0.5) * 5.0   # z in [-2.5, 2.5)
+    heads = heads[_cell_order(heads, cell=1.0)]
+    walk = np.cumsum(rng.normal(size=(n_lip, lip_sz, 3)).astype(np.float32) * 0.08,
+                     axis=1)
+    pos[n_prot:n_prot + n_mem] = (heads[:, None, :] + walk).reshape(-1, 3)[:n_mem]
+    n_wat = n_atoms - n_prot - n_mem
+    n_mol = (n_wat + 2) // 3
+    centers = rng.uniform(0, 1, size=(n_mol, 3)).astype(np.float32) * brick
+    centers = centers[_cell_order(centers)]
+    offsets = rng.normal(size=(n_mol, 2, 3)).astype(np.float32) * 0.06
+    trip = np.stack([centers, centers + offsets[:, 0], centers + offsets[:, 1]],
+                    axis=1)
+    pos[n_prot + n_mem:] = trip.reshape(-1, 3)[:n_wat]
+    pos = put_atoms_in_box(pos, h)
+
+    drift = np.random.default_rng(8)
+    tmp = f"{path}.tmp{os.getpid()}"
+    if os.path.exists(tmp):
+        os.unlink(tmp)
+    cur = pos.copy()
+    for f in range(n_frames):
+        if f:
+            cur = put_atoms_in_box(
+                cur + drift.normal(size=(1, 3)).astype(np.float32) * 0.05
+                + drift.normal(size=cur.shape).astype(np.float32) * 0.01, h)
+        native.xtc_write_frame(tmp, n_atoms, f * 1000, f * 10.0, h.reshape(9),
+                               cur, precision)
+    os.replace(tmp, path)
+    return pos, h
 
 
 def _cell_order(points, cell=0.5):
@@ -291,15 +492,26 @@ def synthetic_state(frame0, box, precision: int = 1000,
 # ------------------------------------------------- oracles of the observables
 
 
+def _is_matrix(box) -> bool:
+    """A box matrix ((3, 3), or [..., 1, 3, 3] per frame) rather than
+    lengths ((3,), or [..., 1, 3] per frame)."""
+    return np.ndim(box) >= 2 and np.shape(box)[-2:] == (3, 3)
+
+
 def _mi(d, box):
-    """Float64 minimum image of displacements `d` [..., 3] in `box`."""
+    """Float64 minimum image of displacements `d` [..., 3] in `box`
+    (lengths, or a box matrix: the exact triclinic image)."""
+    if _is_matrix(box):
+        return host_min_image_triclinic(d, box)
     return d - box * np.round(d / box)
 
 
 def _to_center(p, box, w):
     p = np.asarray(p, np.float64)
     box = np.asarray(box, np.float64)
-    return _mi(p - host_refined_center(p, box, w), box)
+    centre = (host_refined_center_triclinic if _is_matrix(box)
+              else host_refined_center)
+    return _mi(p - centre(p, box, w), box)
 
 
 def host_gyration(p, box, w=None, components: bool = False):
@@ -397,6 +609,29 @@ def host_density_profile(p, box, axis: int, n_bins: int, w, scale: float = 1.0):
     return hist * (n_bins * scale) / np.prod(np.asarray(box, np.float64))
 
 
+def host_density_profile_triclinic(p, h, axis: int, n_bins: int, w,
+                                   scale: float = 1.0, tol: float = 1e-4):
+    """Density profile of one frame in the box matrix `h`, float64: slab
+    floor(frac * n_bins) of the fractional coordinate along `axis`, sums
+    times n_bins * scale / |det h| -> (profile, slack).  An atom within
+    `tol` of a slab edge (in slab widths) may fall on either side in
+    float32: its weight goes to neither slab's profile and to both slabs'
+    slack, so a float32 result is right where |got - profile| <= slack."""
+    h = np.asarray(h, np.float64)
+    w = np.asarray(w, np.float64)
+    u = (np.asarray(p, np.float64) @ np.linalg.inv(h))[:, axis]
+    u = (u - np.floor(u)) * n_bins
+    k = np.round(u)
+    near = np.abs(u - k) < tol
+    sure = np.clip(np.floor(u).astype(np.int64), 0, n_bins - 1)
+    norm = n_bins * scale / abs(np.linalg.det(h))
+    prof = np.bincount(sure[~near], weights=w[~near], minlength=n_bins) * norm
+    slack = np.zeros(n_bins)
+    for c in (k[near] - 1, k[near]):
+        np.add.at(slack, c.astype(np.int64) % n_bins, np.abs(w[near]) * norm)
+    return prof, slack
+
+
 def _edge_bins(x, lo, width, n, tol):
     """Bins of coordinates `x` on edges lo + k * width: (sure bin or -1
     when within `tol` of an edge, [two candidate bins] per item)."""
@@ -463,10 +698,11 @@ def host_in_shape(p, box, shape, tol: float = 1e-5):
 
 def host_pair_histogram(a, b, box, r_max: float, n_bins: int,
                         exclude_self: bool = False, tol: float = 1e-5,
-                        chunk: int = 16):
+                        chunk: int = 4):
     """Count bounds `(lo, hi)` `[n_bins]` of one frame's pair-distance
     histogram: bin k holds the minimum-image distances in
-    (k dr, (k+1) dr], dr = r_max / n_bins; `exclude_self` drops i == j."""
+    (k dr, (k+1) dr], dr = r_max / n_bins; `exclude_self` drops i == j.
+    `box` lengths or a box matrix (the exact triclinic image)."""
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     box = np.asarray(box, np.float64)
@@ -474,8 +710,12 @@ def host_pair_histogram(a, b, box, r_max: float, n_bins: int,
     lo = np.zeros(n_bins + 1, np.int64)
     hi = np.zeros(n_bins + 1, np.int64)
     for i0 in range(0, a.shape[0], chunk):
-        d = _mi(a[i0:i0 + chunk, None, :] - b[None, :, :], box)
-        d = np.sqrt((d * d).sum(-1))
+        d = a[i0:i0 + chunk, None, :] - b[None, :, :]
+        if _is_matrix(box):
+            d = np.sqrt(_min_norm2_triclinic(d, box))
+        else:
+            d = _mi(d, box)
+            d = np.sqrt((d * d).sum(-1))
         if exclude_self:
             r = np.arange(i0, i0 + d.shape[0])
             d[r - i0, r] = np.inf
@@ -499,14 +739,16 @@ def cylinder_args(box):
             0.7 * box[2])
 
 
-def add_observables(pipe, state, cylinder):
+def add_observables(pipe, state, cylinder, span=None):
     """Configure the full-width observables pass on a `TrajectoryAnalysis`
     of either package (they share the API) over a `synthetic_state(...,
     topology="full")` system; `cylinder` is that package's Cylinder made
-    from `cylinder_args`."""
+    from `cylinder_args`, or None for no in-shape count (a triclinic pass
+    refuses one); `span` the density map's, by default the system box."""
     sites = state["sites"]
-    return (pipe.add_gyration("Protein", components=True, name="gyration")
-            .add_density_map("Membrane", "xy", tile=0.1, name="density_map")
+    pipe = (pipe.add_gyration("Protein", components=True, name="gyration")
+            .add_density_map("Membrane", "xy", tile=0.1, span=span,
+                             name="density_map")
             .add_density_profile("Water", "z", 200, mode="mass",
                                  name="profile_mass")
             .add_density_profile("Water", "z", 200, mode="charge",
@@ -519,8 +761,10 @@ def add_observables(pipe, state, cylinder):
             .add_order("Membrane", axis="z", name="order")
             .add_angles(sites["water_angles"], name="angles")
             .add_dihedrals(sites["lipid_dihedrals"], name="dihedrals")
-            .add_principal("Protein", name="principal")
-            .add_in_shape("Water", cylinder, name="in_shape"))
+            .add_principal("Protein", name="principal"))
+    if cylinder is not None:
+        pipe = pipe.add_in_shape("Water", cylinder, name="in_shape")
+    return pipe
 
 
 def _rel(got, want):
@@ -551,13 +795,23 @@ def _nan_gap(got, want) -> float:
     return float(np.abs(gap).max()) if gap.size else 0.0
 
 
-def observable_errors(out, coords, boxes, state, cylinder) -> dict:
+def observable_errors(out, coords, boxes, state, cylinder,
+                      rdf_frames: int | None = None) -> dict:
     """Hold the first `len(coords)` frames of an `add_observables` pass
     against the float64 oracles -> {check: (error, bound)}; a check
     passes when error <= bound.  Relative errors are to the largest
     |value| of the oracle's frame; counts are the number of items
     outside the oracle's (lo, hi) bounds; dihedrals and order must be
-    NaN exactly where the oracle is (`undefined_sites`)."""
+    NaN exactly where the oracle is (`undefined_sites`).
+
+    `boxes` `[F, 3]` lengths, or `[F, 3, 3]` box matrices for a triclinic
+    pass: then the oracles take the exact triclinic minimum image, the
+    density profiles allow the weight of atoms within 1e-4 slab widths of
+    an edge (`host_density_profile_triclinic`), the box volume and
+    lengths are relative errors against |det| and the row norms in
+    float64 (bound 3e-7: float32 rounding), the density map spans the
+    box's diagonal, and there is no in-shape check (`cylinder` None).
+    `rdf_frames` limits the RDF check to the first frames."""
     n = coords.shape[1]
     lay = synthetic_layout(n)
     n_prot, w0 = lay["n_prot"], lay["w0"]
@@ -568,10 +822,14 @@ def observable_errors(out, coords, boxes, state, cylinder) -> dict:
     q = np.asarray(state["charge"], np.float64)
     hyd = lay["lipid_hydrogens"]
     tri, quad = lay["water_angles"], lay["lipid_dihedrals"]
-    err = {k: 0.0 for k in (
-        "gyration", "dipole", "total_dipole", "principal", "profile_mass",
-        "profile_charge", "box_volume", "box_lengths", "angles", "dihedrals",
-        "order", "density_map", "in_shape", "rdf")}
+    triclinic = np.ndim(boxes) == 3
+    keys = ["gyration", "dipole", "total_dipole", "principal", "profile_mass",
+            "profile_charge", "box_volume", "box_lengths", "angles",
+            "dihedrals", "order", "density_map", "rdf"]
+    if cylinder is not None:
+        keys.append("in_shape")
+    err = {k: 0.0 for k in keys}
+    rdf_frames = coords.shape[0] if rdf_frames is None else rdf_frames
 
     def worst(key, e):
         err[key] = max(err[key], e)
@@ -580,6 +838,7 @@ def observable_errors(out, coords, boxes, state, cylinder) -> dict:
         p = np.asarray(coords[f], np.float32)
         box = np.asarray(boxes[f], np.float32)
         box64 = box.astype(np.float64)
+        lengths = np.diag(box64) if triclinic else box64
         worst("gyration", _rel(out["gyration"][f],
                                host_gyration(p[prot], box, mass[prot], True)))
         worst("dipole", _rel(out["dipole"][f],
@@ -588,14 +847,26 @@ def observable_errors(out, coords, boxes, state, cylinder) -> dict:
             p[wat], box, q[wat], (np.arange(w0, n) - w0) // 3)))
         worst("principal", _rel(out["principal"][f],
                                 host_principal(p[prot], box, mass[prot])))
-        worst("profile_mass", _rel(out["profile_mass"][f], host_density_profile(
-            p[wat], box, 2, 200, mass[wat], 1.66053906660)))
-        worst("profile_charge", _rel(out["profile_charge"][f],
-                                     host_density_profile(p[wat], box, 2, 200,
-                                                          q[wat])))
-        worst("box_volume", float(out["box_volume"][f] != np.float32(
-            np.prod(box64))))
-        worst("box_lengths", float(np.abs(out["box_lengths"][f] - box).max()))
+        for key, wt, scale in (("profile_mass", mass[wat], 1.66053906660),
+                               ("profile_charge", q[wat], 1.0)):
+            got = out[key][f]
+            if triclinic:
+                want, slack = host_density_profile_triclinic(p[wat], box64, 2,
+                                                             200, wt, scale)
+                gap = np.maximum(np.abs(got - want) - slack, 0.0)
+                worst(key, float(gap.max() / max(np.abs(want).max(), 1e-30)))
+            else:
+                worst(key, _rel(got, host_density_profile(p[wat], box, 2, 200,
+                                                          wt, scale)))
+        if triclinic:
+            worst("box_volume", _rel(out["box_volume"][f],
+                                     abs(np.linalg.det(box64))))
+            worst("box_lengths", _rel(out["box_lengths"][f],
+                                      np.sqrt((box64 * box64).sum(-1))))
+        else:
+            worst("box_volume", float(out["box_volume"][f] != np.float32(
+                np.prod(box64))))
+            worst("box_lengths", float(np.abs(out["box_lengths"][f] - box).max()))
         pb = p[None]
         want = angles_host_f64(pb[:, tri[:, 0]], pb[:, tri[:, 1]],
                                pb[:, tri[:, 2]], box64[None])[0]
@@ -608,23 +879,28 @@ def observable_errors(out, coords, boxes, state, cylinder) -> dict:
         with np.errstate(invalid="ignore"):
             want = host_order(p[hyd - 1], p[hyd], box, [0.0, 0.0, 1.0])
         worst("order", _nan_gap(out["order"][f], want))
-        lo, hi = host_density_map(p[mem], (0, 1), ((0.0, box64[0]),
-                                                  (0.0, box64[1])),
-                                  int(round(box64[0] / 0.1)),
-                                  int(round(box64[1] / 0.1)))
+        lo, hi = host_density_map(p[mem], (0, 1), ((0.0, lengths[0]),
+                                                  (0.0, lengths[1])),
+                                  int(round(lengths[0] / 0.1)),
+                                  int(round(lengths[1] / 0.1)))
         got = out["density_map"][f]
         worst("density_map", float(((got < lo) | (got > hi)).sum()))
-        lo, hi = host_in_shape(p[wat], box, cylinder)
-        worst("in_shape", float(not lo <= out["in_shape"][f] <= hi))
+        if cylinder is not None:
+            lo, hi = host_in_shape(p[wat], box, cylinder)
+            worst("in_shape", float(not lo <= out["in_shape"][f] <= hi))
+        if f >= rdf_frames:
+            continue
         lo, hi = host_pair_histogram(p[pep], p[mem], box, 2.0, 200)
         edges = np.arange(201) * (2.0 / 200)
         n_pairs = (pep.stop - pep.start) * (w0 - n_prot)
-        ideal = n_pairs * 4.0 / 3.0 * np.pi * np.diff(edges ** 3) / np.prod(box64)
+        vol = abs(np.linalg.det(box64)) if triclinic else np.prod(box64)
+        ideal = n_pairs * 4.0 / 3.0 * np.pi * np.diff(edges ** 3) / vol
         counts = np.rint(out["rdf"][f].astype(np.float64) * ideal)
         worst("rdf", float(((counts < lo) | (counts > hi)).sum()))
     bounds = {"gyration": 1e-4, "dipole": 1e-4, "total_dipole": 1e-4,
               "principal": 1e-3, "profile_mass": 1e-4, "profile_charge": 1e-4,
-              "box_volume": 0.0, "box_lengths": 0.0, "angles": 2e-2,
+              "box_volume": 3e-7 if triclinic else 0.0,
+              "box_lengths": 3e-7 if triclinic else 0.0, "angles": 2e-2,
               "dihedrals": 2e-2, "order": 3e-4, "density_map": 0.0,
               "in_shape": 0.0, "rdf": 0.0}
     return {k: (err[k], bounds[k]) for k in err}

@@ -13,7 +13,8 @@ torch.set_num_threads(1)
 
 def jax_system(state: dict):
     """A `groan_rs_tpu` System built from a port state dict (as
-    `bench.py:160-179` builds its System: masses and groups), with the
+    `bench.py:160-179` builds its System: masses and groups; a `(3, 3)`
+    box through `SimBox.from_matrix`), with the
     optional charges, bonds, element symbols and atom names set through
     the JAX `Topology`'s own columns and setters."""
     from groan_rs_tpu.core.simbox import SimBox
@@ -37,8 +38,9 @@ def jax_system(state: dict):
     if state.get("bonds") is not None:
         topo.set_bonds_from_pairs(np.asarray(state["bonds"], np.int64))
     box = np.asarray(state["box"], np.float32)
-    s = System(state.get("name", "system"), topo,
-               simbox=SimBox.from_lengths(*map(float, box)), positions=pos)
+    simbox = (SimBox.from_matrix(box) if box.shape == (3, 3)
+              else SimBox.from_lengths(*map(float, box)))
+    s = System(state.get("name", "system"), topo, simbox=simbox, positions=pos)
     s.set_precision(int(state["precision"]))
     for name, idx in state["groups"].items():
         idx = np.asarray(idx)
@@ -58,13 +60,15 @@ def _strs(col):
 def state_from_jax_system(system, groups) -> dict:
     """The state dict (`groan_rs_tpu_torch.convert`) of a `groan_rs_tpu`
     System, carrying the named groups, charges, bonds, element symbols
-    and atom names."""
+    and atom names; a triclinic box as its `(3, 3)` matrix."""
     topo = system.topology
+    box = system.get_box()
     pairs = [(i, j) for i, nb in enumerate(topo.bonded) for j in nb if i <= j]
     return {
         "name": system.name,
         "positions": np.asarray(system.positions, np.float32),
-        "box": np.asarray(system.get_box().to_lengths_vec(), np.float32),
+        "box": (np.asarray(box.to_lengths_vec(), np.float32)
+                if box.is_orthogonal() else box.to_matrix()),
         "mass": np.asarray(topo.mass, np.float32),
         "has_mass": np.asarray(topo.has_mass, bool),
         "charge": np.asarray(topo.charge, np.float32),

@@ -236,9 +236,15 @@ def test_error_paths_match_jax(systems, case):
 
 
 def test_unported_still_raise(systems):
-    *_, tsys = systems
-    for fn in (lambda: TTA(tsys, device="cpu", triclinic=True),
-               lambda: TTA(tsys, device="cpu").add_hbonds("Protein"),
+    """hbonds and velocities still raise; a triclinic observables pass is
+    ported and runs (tests/test_torch_triclinic_pipeline.py)."""
+    xtc, *_, tsys = systems
+    out = (TTA(tsys, device="cpu", triclinic=True).add_gyration("Protein")
+           .add_box_volume().runner().run(xtc, batch_size=5))
+    assert out["gyration_Protein"].shape == (N_FRAMES,)
+    assert np.isfinite(out["gyration_Protein"]).all()
+    assert out["box_volume"].shape == (N_FRAMES,)
+    for fn in (lambda: TTA(tsys, device="cpu").add_hbonds("Protein"),
                lambda: TTA(tsys, device="cpu").add_velocity_step("Protein")):
         with pytest.raises(ParallelError, match="ROADMAP"):
             fn()

@@ -144,9 +144,13 @@ def test_resident_layout_is_checked(systems):
 
 
 def test_unported_features_raise(systems):
-    _, _, tsys = systems
-    with pytest.raises(ParallelError, match="ROADMAP"):
-        TTA(tsys, device="cpu", triclinic=True)
+    """Meshes, velocities, other wires and hbonds still raise; triclinic=True
+    is ported and runs (tests/test_torch_triclinic_pipeline.py)."""
+    xtc, _, tsys = systems
+    out = TTA(tsys, device="cpu", triclinic=True).add_com("Protein").runner().run(
+        xtc, batch_size=5)
+    assert out["com_Protein"].shape == (N_FRAMES, 3)
+    assert np.isfinite(out["com_Protein"]).all()
     with pytest.raises(ParallelError, match="ROADMAP"):
         TTA(tsys, device="cpu", mesh=object())
     with pytest.raises(ParallelError, match="ROADMAP"):
