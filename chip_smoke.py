@@ -81,6 +81,20 @@ Phases, each of which raises on failure (the run then exits non-zero):
    step within rel 1e-5 of float64 host sums, COM within 2e-3, resident
    equal to streamed, the f32 wire.  K1, K2 and K3 launched; their
    launches join phases 4-5's in the kernels' line.
+11. Hydrogen bonds and bond guessing, 1M atoms: `guess_bonds` on phase
+   10's System equal to a float64 cKDTree oracle outside 1e-5 nm of each
+   pair's limit.  Phase 7's full topology, every water as one chain
+   (OW / OW / HW1 HW2, 0.35 nm, 120 degrees) beside a Protein COM:
+   `method="auto"` picks cells; 24 frames streamed at batch 12 over q16;
+   frames 0 and 23 equal the host float32 emulation exactly,
+   `hbonds_analyze_batched` equals the host path bond for bond on frame
+   0, the COM is within 2e-3 of float64, a resident window is refused,
+   K1 and K2 launched (their launches join the kernels' line).  The first
+   7,000 waters (a GSL serial range): `"auto"` picks dense; strict dense
+   streamed and resident equal cells on every frame; the frames
+   `strict=False` gets wrong are printed, with the guarded triples, the
+   re-score, the scorer's and counter's device ms, the candidate and
+   wire counts and `max_memory_allocated`.
 
 Phase 7 also prints the worst of the 1M-atom dihedral sites: its error,
 central bond, bend angles, lever arm, whether it crosses the box, and
@@ -724,9 +738,13 @@ def profile_pass(torch, label, fn):
 
 
 def phase_seconds(phase, since):
-    """Print a phase's seconds; -> the clock for the next phase."""
+    """Print a phase's seconds and the process's peak host memory so far;
+    -> the clock for the next phase."""
+    import resource
+
     now = time.perf_counter()
-    say(f"phase {phase} seconds: {now - since:.1f}")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB -> GiB
+    say(f"phase {phase} seconds: {now - since:.1f} (host peak RSS {peak:.2f} GiB)")
     return now
 
 
@@ -1406,6 +1424,216 @@ def files_phase(torch, xtc, offs, nat, box, dev):
         check(v2 > 0, f"{k2} launched in phase 10 ({v2})")
     for p in parts + [trr]:
         os.unlink(p)
+    return counts, system
+
+
+HB_FRAMES = 24  # frames of phase 4's XTC in the hydrogen-bond passes
+DENSE_WATERS = 7000  # waters of the dense chain: 4.9e7 pairs per leg
+
+
+def guess_bonds_checks(system, box):
+    """Phase 11 (a): `guess_bonds` on phase 10's System against a float64
+    cKDTree with the box as its period: equal bond sets outside 1e-5 nm of
+    each pair's limit 0.55 (vdw_i + vdw_j)."""
+    import warnings
+
+    from scipy.spatial import cKDTree
+
+    from groan_rs_tpu_torch.system.guess import DEFAULT_RADIUS_FACTOR as F
+
+    topo = system.topology
+    n = system.get_n_atoms()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        system.guess_bonds()
+    t_guess = time.perf_counter() - t0
+    got = topo.bond_pairs()
+    box64 = np.asarray(box, np.float64)
+    p = np.mod(system.positions.astype(np.float64), box64)
+    p = np.where(p >= box64, 0.0, p)
+    vdw = topo.vdw.astype(np.float64)
+    t0 = time.perf_counter()
+    cand = cKDTree(p, boxsize=box64).query_pairs(
+        2 * F * float(vdw[topo.has_vdw].max()), output_type="ndarray")
+    i, j = cand[:, 0], cand[:, 1]
+    keep = topo.has_vdw[i] & topo.has_vdw[j]
+    i, j = i[keep], j[keep]
+    d = p[i] - p[j]
+    d -= box64 * np.round(d / box64)
+    dist = np.sqrt((d * d).sum(1))
+    lim = F * (vdw[i] + vdw[j])
+    t_tree = time.perf_counter() - t0
+    key = i.astype(np.int64) * n + j
+    band = key[np.abs(dist - lim) < 1e-5]
+    diff = np.setxor1d(got[:, 0] * n + got[:, 1], key[dist < lim])
+    say(f"  guess_bonds at {n} atoms: {t_guess:.2f} s, {len(got)} bonds; cKDTree "
+        f"oracle {t_tree:.2f} s, {int((dist < lim).sum())} bonds; {len(band)} pairs "
+        f"within 1e-5 nm of their limit, {len(diff)} bonds differ; warnings "
+        f"{[str(w.message) for w in caught]}")
+    check(np.isin(diff, band).all(),
+          "guess_bonds equals the float64 cKDTree oracle outside 1e-5 nm of each limit")
+    return t_guess
+
+
+def _bond_arrays(bonds):
+    """(int64 [k, 3] donor/hydrogen/acceptor, float64 distances, cosines)."""
+    idx = np.asarray([(b.donor, b.hydrogen, b.acceptor) for b in bonds], np.int64)
+    dist = np.asarray([b.distance for b in bonds], np.float64)
+    cos = np.cos(np.radians(np.asarray([b.angle for b in bonds], np.float64)))
+    return idx.reshape(-1, 3), dist, cos
+
+
+def cell_stats(batch_stats):
+    """One line per batch of the cell scorer's record."""
+    for k, s in enumerate(batch_stats):
+        dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.3f} ms"
+        say(f"    batch {k}: candidate pairs per frame {int(s['candidates'].mean())}, "
+            f"host candidates {s['host_candidate_s']:.3f} s (C++ walk "
+            f"{s['walk_s']:.3f} s), wire "
+            f"{s['wire_bytes'] / 1e6:.1f} MB, scorer device {dev_ms}, guarded "
+            f"triples per frame mean {s['guarded'].mean():.1f} max "
+            f"{int(s['guarded'].max())}, host re-score {s['rescore_s']:.4f} s")
+
+
+def hbonds_phase(torch, xtc, offs, nat, frame0, box, fsys, dev):
+    """Phase 11 -> K1/K2/K3 launches of its cell pass (with a COM)."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch.core.simbox import SimBox
+    from groan_rs_tpu_torch.errors import ParallelError
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.models import TrajectoryAnalysis
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.system.hbonds import HBondAnalysis, HBondChain
+
+    say(f"phase 11: hydrogen bonds and bond guessing, {nat} atoms")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    guess_bonds_checks(fsys, box)
+
+    # ---- (b) the cell method over every water ---------------------------
+    _, _, times, _ = native.xtc_scan(xtc)
+    n_hb = min(HB_FRAMES, len(times))
+    end = float(times[n_hb - 1])
+    state = testing.synthetic_state(frame0.copy(), box, topology="full")
+    system = convert.system_from_state(state)
+    lay = testing.synthetic_layout(nat)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    water = [HBondChain("name OW", "name OW", "name HW1 HW2")]
+    pipe = (TrajectoryAnalysis(system, device=dev)
+            .add_hbonds(water, [(0, 0)], 0.35, 120.0, name="hb")
+            .add_com("Protein", name="com"))
+    n_don = len(lay["water_oxygens"])
+    check(len(pipe._hbond_specs) == 1 and not pipe._multi_factories,
+          f"method='auto' picked cells ({n_don} x {n_don} = {n_don ** 2:.1e} pairs per leg)")
+    runner = pipe.runner()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = runner.run(xtc, batch_size=BATCH, end_time=end)
+    if cuda:
+        torch.cuda.synchronize()
+    t_cells = time.perf_counter() - t0
+    counts = dict(K.launch_counts)
+    hb = out["hb_0_0"]
+    clocks = {k: round(sum(v), 3) for k, v in runner.engine.last_stage_seconds.items()}
+    say(f"  cell pass, {n_hb} frames streamed at batch {BATCH}, q16, {len(runner.sel)} "
+        f"atoms shipped: {t_cells:.2f} s; host clocks {clocks}; launches {counts}")
+    say(f"  hydrogen bonds per frame: {hb.tolist()}")
+    cell_stats(runner.hbond_specs[0][1].batch_stats)
+    check(hb.shape == (n_hb,) and hb.dtype == np.int64 and (hb > 0).all(),
+          f"hb_0_0: {hb.shape} int64, every frame has bonds")
+    for k in ("bai_breen_estimate", "bai_breen_refine"):
+        check(counts[k] > 0, f"{k} launched beside the hydrogen bonds")
+
+    host_ana = HBondAnalysis(system, water, [(0, 0)], 0.35, 120.0)
+    ids = [0, n_hb - 1]
+    coords, b9s, *_ = native.xtc_read_frames(xtc, offs[ids], nat)
+    host = {}
+    for k, f in enumerate(ids):
+        system.positions[:] = coords[k]
+        system.set_box(SimBox.from_lengths(*map(float, b9s[k][[0, 4, 8]])))
+        t0 = time.perf_counter()
+        host[f] = host_ana.analyze(system)[(0, 0)]
+        check(len(host[f]) == hb[f], f"frame {f}: {hb[f]} bonds, the host float32 "
+              f"emulation's exactly ({time.perf_counter() - t0:.2f} s on the host)")
+    t0 = time.perf_counter()
+    _, hmap = next(system.hbonds_analyze_batched(xtc, water, [(0, 0)], 0.35, 120.0,
+                                                 batch_size=1, end_time=0.0, device=dev))
+    t_list = time.perf_counter() - t0
+    (gi, gd, gc), (hi, hd, hc) = _bond_arrays(hmap[(0, 0)]), _bond_arrays(host[0])
+    same = gi.shape == hi.shape and np.array_equal(gi, hi)
+    check(same and np.abs(gd - hd).max() < 1e-6 and np.abs(gc - hc).max() < 2e-6,
+          f"hbonds_analyze_batched frame 0 equals the host path bond for bond "
+          f"({len(gi)} bonds; distance {np.abs(gd - hd).max():.1e} nm, cos "
+          f"{np.abs(gc - hc).max():.1e}; {t_list:.2f} s)")
+    pc, _, *_ = native.xtc_read_frames(xtc, offs[:n_hb], nat, stop_after=n_prot)
+    w = state["mass"][:n_prot]
+    e = max(float(np.abs(out["com"][f] - testing.host_refined_center(pc[f], box, w)).max())
+            for f in range(n_hb))
+    check(e < 2e-3, f"com beside the hydrogen bonds vs float64 oracle ({e:.3e})")
+    dt = runner.load_device(xtc, batch_size=BATCH, end_time=float(times[BATCH - 1]))
+    try:
+        runner.run(dt, batch_size=BATCH)
+        refused = False
+    except ParallelError:
+        refused = True
+    check(refused, "run(dt) with a cell spec on a resident window raises ParallelError")
+    del dt
+
+    # ---- (c) the dense method, strict, on the first waters ---------------
+    n_dense = min(DENSE_WATERS, len(lay["water_oxygens"]) - 1)
+    span = f"serial {w0 + 1} to {w0 + 3 * n_dense}"
+    chain = [HBondChain(f"name OW and {span}", f"name OW and {span}",
+                        f"name HW1 HW2 and {span}")]
+
+    def dense_pass(method, strict=True):
+        p = TrajectoryAnalysis(system, device=dev).add_hbonds(
+            chain, [(0, 0)], 0.35, 120.0, name="hb", method=method, strict=strict)
+        return p, p.runner()
+
+    dpipe, drun = dense_pass("auto")
+    check(len(dpipe._multi_factories) == 1 and not dpipe._hbond_specs,
+          f"method='auto' picked dense ({n_dense ** 2:.1e} pairs per leg)")
+    t0 = time.perf_counter()
+    dense = drun.run(xtc, batch_size=BATCH, end_time=end)["hb_0_0"]
+    if cuda:
+        torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    guards, t_re = drun.last_guards["hb"], drun.last_rescore_seconds.get("hb", 0.0)
+    counter = dpipe.dense_counters["hb"]
+    dense_ms = [a.elapsed_time(b) for a, b in counter.events]
+    ddt = drun.load_device(xtc, batch_size=BATCH, end_time=end)
+    t0 = time.perf_counter()
+    resident = drun.run(ddt, batch_size=BATCH)["hb_0_0"]
+    if cuda:
+        torch.cuda.synchronize()
+    t_res = time.perf_counter() - t0
+    rguards = drun.last_guards["hb"]
+    _, crun = dense_pass("cells")
+    t0 = time.perf_counter()
+    cells = crun.run(xtc, batch_size=BATCH, end_time=end)["hb_0_0"]
+    t_dcells = time.perf_counter() - t0
+    _, lrun = dense_pass("dense", strict=False)
+    loose = lrun.run(xtc, batch_size=BATCH, end_time=end)["hb_0_0"]
+    say(f"  dense chain: {n_dense} waters ({span}), {n_hb} frames: streamed "
+        f"{t_dense:.2f} s, dense counter device ms per batch "
+        f"{[round(x, 3) for x in dense_ms]}; guarded triples per frame mean "
+        f"{guards.mean():.1f} max {int(guards.max())}; {int((guards > 0).sum())} of "
+        f"{n_hb} frames re-scored in {t_re:.3f} s; resident {t_res:.2f} s "
+        f"({int((rguards > 0).sum())} frames re-scored); cells on the chain "
+        f"{t_dcells:.2f} s")
+    cell_stats(crun.hbond_specs[0][1].batch_stats)
+    say(f"  hydrogen bonds per frame (dense chain): {dense.tolist()}")
+    check(np.array_equal(dense, cells), "strict dense (streamed) equals cells on every frame")
+    check(np.array_equal(resident, dense),
+          "strict dense resident equals streamed bit for bit")
+    wrong = int((loose != cells).sum())
+    say(f"  strict=False: {wrong} of {n_hb} frames differ from the exact counts "
+        f"(by {np.abs(loose - cells).tolist()})")
+    if cuda:
+        say(f"  max_memory_allocated over phase 11: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
     return counts
 
 
@@ -1563,8 +1791,13 @@ def main():
     t_phase = phase_seconds(9, t_phase)
 
     # ---- 10. from files to results ------------------------------------------
-    file_counts = files_phase(torch, xtc, offs, nat, box, dev)
+    file_counts, fsys = files_phase(torch, xtc, offs, nat, box, dev)
     t_phase = phase_seconds(10, t_phase)
+
+    # ---- 11. hydrogen bonds and bond guessing --------------------------------
+    hb_counts = hbonds_phase(torch, xtc, offs, nat, c0[0], box, fsys, dev)
+    del fsys
+    t_phase = phase_seconds(11, t_phase)
 
     # ---- where the time goes: one profiled pass of each kind -----------
     # the triclinic main path over one batch: phase 9's 12-frame file (the
@@ -1614,7 +1847,8 @@ def main():
         "pair_reduce": "per-axis minimum image (torch.cdist has none)"}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
-         "launches": counts[k] + file_counts[k], "max_abs_err": rec[k]["max_abs_err"],
+         "launches": counts[k] + file_counts[k] + hb_counts[k],
+         "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
          "pct_of_bound": 100 * rec[k]["bound"][0] / rec[k]["ms"],
@@ -1622,7 +1856,8 @@ def main():
          "library_ms": None, "library_none": no_library[k],
          "shape": rec[k]["shape"], "observables_launches": obs_counts[k],
          "triclinic_launches": tri_counts[k] + tobs_counts[k],
-         "main_path_launches": counts[k], "files_launches": file_counts[k]}
+         "main_path_launches": counts[k], "files_launches": file_counts[k],
+         "hbonds_launches": hb_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

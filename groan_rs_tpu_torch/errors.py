@@ -122,6 +122,17 @@ class RMSDError(GroanError):
     """reference: errors.rs RMSDError."""
 
 
+class HBondError(GroanError):
+    """reference: errors.rs HBondError (codes EmptyChain, NonexistentChain,
+    PairSpecifiedMultipleTimes, UnusedChain, SelectError,
+    InvalidSelection, InvalidMethod, InvalidWire)."""
+
+
+class CellGridError(GroanError):
+    """reference: errors.rs CellGridError (codes InvalidSimBox,
+    InvalidCellSize, GroupError, InvalidPosition)."""
+
+
 class FileTypeError(GroanError):
     """Unknown or unsupported file type (reference: files.rs)."""
 

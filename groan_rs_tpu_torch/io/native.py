@@ -7,9 +7,10 @@ build directory (`groan_rs_tpu_torch/csrc/build/`), atomically (tmp +
 `os.replace`: several test workers may build at once).
 
 Bound here, with the JAX binding's argtypes
-(`groan_rs_tpu/io/native.py:49-140`, `:169-260`, `:463-556`):
+(`groan_rs_tpu/io/native.py:49-140`, `:169-260`, `:434-556`):
 `xtc_scan`, `xtc_read_frames`, `xtc_read_frames_q16`, `xtc_write_frame`,
-`trr_scan`, `trr_probe`, `trr_read_frames` and `trr_write_frame`.
+`trr_scan`, `trr_probe`, `trr_read_frames`, `trr_write_frame` and the
+hydrogen-bond candidate walk `hbond_candidates`.
 """
 
 from __future__ import annotations
@@ -108,6 +109,10 @@ def get_lib():
             lib.gx_trr_write_frame.argtypes = [ctypes.c_char_p, i32, i32, f64,
                                                f64, P(f32), P(f32), P(f32),
                                                P(f32)]
+            lib.gx_hbond_candidates.restype = i64
+            lib.gx_hbond_candidates.argtypes = [P(f32), P(f32), P(i32), i32,
+                                                P(i32), i32, f32, P(i32),
+                                                P(i32), i64]
             _lib = lib
     return _lib
 
@@ -259,6 +264,33 @@ def trr_read_frames(path, offsets, natoms: int, want_x: bool = True,
         _p(flags, ctypes.c_uint8), max(1, os.cpu_count() or 1))
     _check(rc, path)
     return x, v, f, boxes, _steps_u32(steps), times, lambdas, flags
+
+
+def hbond_candidates(positions, box3, acceptors, donors, max_distance,
+                     cap: int | None = None):
+    """Cell-pruned (donor, acceptor) candidate pair RANKS of one frame, in
+    the reference's order (`gx_hbond_candidates`: donors in chain order,
+    per donor its <= 27 neighbour cells in (x, y, z) offset order, within
+    a cell ascending atom index) -> (d_rank, a_rank) int64."""
+    lib = get_lib()
+    pos = np.ascontiguousarray(positions, np.float32)
+    box = np.ascontiguousarray(box3, np.float32).reshape(3)
+    acc = np.ascontiguousarray(acceptors, np.int32)
+    don = np.ascontiguousarray(donors, np.int32)
+    n_guess = int(cap) if cap else max(1024, 64 * don.shape[0])
+    i32 = ctypes.c_int32
+    while True:
+        d_out = np.empty(n_guess, np.int32)
+        a_out = np.empty(n_guess, np.int32)
+        rc = lib.gx_hbond_candidates(
+            _p(pos, ctypes.c_float), _p(box, ctypes.c_float), _p(acc, i32),
+            acc.shape[0], _p(don, i32), don.shape[0], float(max_distance),
+            _p(d_out, i32), _p(a_out, i32), n_guess)
+        if rc == -10:  # capacity exceeded: double and retry
+            n_guess *= 2
+            continue
+        n = _check(rc, "<hbond candidates>")
+        return d_out[:n].astype(np.int64), a_out[:n].astype(np.int64)
 
 
 def trr_write_frame(path, natoms: int, step: int, time: float, lam: float, box9,

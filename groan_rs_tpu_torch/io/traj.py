@@ -1,6 +1,6 @@
 """Batched trajectory reading for the device pipeline.
 
-Port of the batch path of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107,
+Port of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107,
 `XtcSource` :168-220, `TrrSource` :222-257, `TrajReader` :418-690,
 `cat_iter` :1101, the loader :894-958):
 
@@ -26,6 +26,9 @@ Port of the batch path of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107,
   to the float decode).  "auto" resolves to "q16", with the JAX reader's
   fallback to f32 when a file's integers do not fit int16.  The delta wires
   are not ported (ROADMAP.md).
+- Iterating a `TrajReader` yields the System once per frame, holding
+  that frame's positions, box, step and time (JAX `io/traj.py:822-889`);
+  `read_frames` reads frames by number as one f32 batch (`:588`).
 - `print_progress` ticks a `ProgressPrinter` as batches are handed out:
   every frame counts (printed every `print_freq` frames), then COMPLETED,
   or FAILED when reading fails.  (The JAX runner attaches the printer but
@@ -193,6 +196,7 @@ class TrajReader:
     def __init__(self, system, sources, group: str | None = None,
                  batch_size: int = 64, indices=None, velocities: bool = True):
         """`velocities`: read the velocity block of TRR sources."""
+        self.system = system
         self.sources = list(sources)
         self.batch_size = batch_size
         self.velocities = velocities
@@ -291,6 +295,9 @@ class TrajReader:
     def selected_frames(self) -> np.ndarray:
         return np.nonzero(self._mask)[0]
 
+    def n_selected(self) -> int:
+        return int(self._mask.sum())
+
     @property
     def times(self) -> np.ndarray:
         return self._times[self._mask]
@@ -298,6 +305,67 @@ class TrajReader:
     @property
     def steps(self) -> np.ndarray:
         return self._steps[self._mask]
+
+    def read_frames(self, frame_ids) -> FrameBatch:
+        """Frames of the concatenated stream by absolute number, as ONE
+        float32 FrameBatch (JAX `io/traj.py:588`; the strict dense
+        hydrogen-bond re-score revisits flagged frames with it)."""
+        ids = np.asarray(frame_ids, np.int64)
+        srcs = self._src[ids]
+        parts = []
+        for si in np.unique(srcs):
+            part = self.sources[int(si)].read_batch(
+                self._local[ids[srcs == si]], stop_after=self._stop_after,
+                velocities=self.velocities)
+            part.frame_numbers = ids[srcs == si]
+            parts.append(part)
+        out = _concat(parts)
+        if self._sel is not None:
+            self._gather_selection(out)
+        return out
+
+    # ------------------------------------------------------------- frames
+    def __iter__(self):
+        """Per-frame iteration: each frame written into the System, which
+        is yielded (JAX `io/traj.py:822-841`)."""
+        p = self.progress
+        counter = 0
+        try:
+            for batch in self.batches():
+                for k in range(len(batch)):
+                    self._update_system(batch, k)
+                    if p is not None:
+                        p.print(counter, self.system.get_step(), self.system.get_time())
+                    counter += 1
+                    yield self.system
+        except Exception:
+            if p is not None:
+                p.set_status(ProgressStatus.FAILED)
+                p.print(0, self.system.get_step(), self.system.get_time())
+            raise
+        if p is not None:
+            p.set_status(ProgressStatus.COMPLETED)
+            p.print(0, self.system.get_step(), self.system.get_time())
+
+    def _update_system(self, batch: FrameBatch, k: int) -> None:
+        """Write frame k of a batch into the System (reference:
+        XtcFrameData::update_system, molly_xtc.rs:292-306): positions (of
+        the selection only, when there is one), velocities where the batch
+        carries them, box, step and time."""
+        from ..core.simbox import SimBox
+
+        s = self.system
+        sel = batch.atom_indices
+        at = slice(None) if sel is None else sel
+        s.positions[at] = batch.positions[k]
+        s.has_position[at] = True
+        if batch.velocities is not None:
+            s.velocities[at] = batch.velocities[k]
+        s.has_velocity[at] = batch.velocities is not None
+        b9 = batch.boxes9[k]
+        s.set_box(SimBox.from_gro_line(b9) if np.any(b9 != 0.0) else None)
+        s.set_step(int(batch.steps[k]))
+        s.set_time(float(batch.times[k]))
 
     # ------------------------------------------------------------- batches
     def batches(self, wire: str = "f32"):

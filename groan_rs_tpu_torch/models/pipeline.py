@@ -45,13 +45,20 @@ norms.  It is plain torch: no triclinic step launches K1, K2 or K3.
 but XYZ, as in the JAX package.  With `triclinic=False` a triclinic
 system's box is read as its diagonal, as in the JAX package.
 
-Not ported yet, and refused with an error naming ROADMAP.md: meshes and
-hbond specs.
+Hydrogen bonds (`add_hbonds`, JAX `:884-967`): per-frame counts per
+chain pair, by the cell scorer (host candidate ranks through the
+engine's `on_batch`, scored on the device, streamed passes only) or the
+dense counter (an in-step observable, computed once per step and split
+into its keys; with `strict`, frames with guarded triples are re-read
+and re-scored exactly on the host, streamed or resident).
+
+Not ported yet, and refused with an error naming ROADMAP.md: meshes.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -69,6 +76,10 @@ from ..ops import rmsd as rmsd_ops
 __all__ = ["TrajectoryAnalysis", "PipelineRunner", "run_many"]
 
 _LATER = "not ported to groan_rs_tpu_torch yet (see ROADMAP.md)"
+
+# add_hbonds(method="auto"): dense when every leg has at most this many
+# donor x acceptor pairs, else cells (JAX `models/pipeline.py:925-931`)
+_DENSE_MAX_PAIRS = 10**8
 
 
 class _Idx:
@@ -196,6 +207,14 @@ class TrajectoryAnalysis:
         self.device = require_cuda() if device is None else as_device(device)
         self._specs = []  # (name, fn(positions, boxes) -> tensor)
         self._vel_specs = []  # (name, fn(positions, velocities, boxes, mask))
+        # factory(sel) -> fn(positions, boxes) -> {name: tensor}: several
+        # results of one computation (the dense hbond counter)
+        self._multi_factories = []
+        self._hbond_specs = []  # (name, HBondAnalysis): the cell scorer
+        self._dense_strict = []  # (name, HBondAnalysis): guarded dense counts
+        # name -> the dense counter of the last compiled step (its `calls`,
+        # and on CUDA its `events`)
+        self.dense_counters = {}
         self._handles: list[_Idx] = []
 
     # ------------------------------------------------------------- helpers
@@ -711,8 +730,79 @@ class TrajectoryAnalysis:
         self._specs.append((name or f"in_shape_{group}", fn))
         return self
 
-    def add_hbonds(self, *args, **kwargs):
-        raise ParallelError(f"hbond observables are {_LATER}")
+    def add_hbonds(self, chains, pairs, max_distance: float = 0.35,
+                   min_angle: float = 120.0, name: str | None = None,
+                   method: str = "auto", strict: bool = True):
+        """Per-frame hydrogen-bond counts per chain pair (reference:
+        HBondTrajRead::hbonds_analyze, hbonds.rs:457) -> one key per pair,
+        `{name}_{c1}_{c2}`: [F] int64.
+
+        `method`:
+        - "cells": the host's cell walk gives candidate pair ranks per
+          batch, the device scores them, guarded triples are re-scored on
+          the host: counts equal `System.hbonds_analyze` exactly.  Streamed
+          passes only (a resident window raises ParallelError).
+        - "dense": every donor x acceptor pair in the step, tiled over
+          donors (`system.hbonds.make_dense_counter`).  With `strict`
+          (default) the step also counts guarded triples per frame, and
+          every frame with one is re-read (streamed) or fetched from the
+          window (resident) and re-scored exactly; `strict=False` keeps
+          the device's decisions at the boundary.
+        - "auto": "dense" when every leg has at most 10^8 donor x acceptor
+          pairs, else "cells"."""
+        from ..errors import HBondError
+        from ..system.hbonds import HBondAnalysis
+
+        if self.triclinic:
+            raise GroupError("hydrogen bonds take orthogonal boxes; triclinic "
+                             "pipelines are not supported", code="InvalidSimBox")
+        analysis = HBondAnalysis(self.system, chains, pairs, max_distance,
+                                 min_angle, device=self.device)
+        touched = np.unique(np.concatenate(
+            [np.concatenate([c.acceptors, c.donors, c.h_idx]) for c in analysis.chains]))
+        self._register(touched)  # ship="auto" must cover the chains
+        nm = name or "hbonds"
+        if method == "auto":
+            worst = max((acc.acceptors.shape[0] * don.donors.shape[0]
+                         for _, acc, don, _, _ in analysis._tables().legs), default=0)
+            method = "dense" if worst <= _DENSE_MAX_PAIRS else "cells"
+        if method == "cells":
+            self._hbond_specs.append((nm, analysis))
+            return self
+        if method != "dense":
+            raise HBondError(f"unknown hbond method '{method}' (auto, cells or dense)",
+                             code="InvalidMethod")
+        keys = [f"{nm}_{c1}_{c2}" for c1, c2 in analysis.pairs]
+
+        def factory(sel):
+            from ..system.hbonds import make_dense_counter
+
+            count = make_dense_counter(self._remapped(analysis, sel), with_guard=strict)
+            self.dense_counters[nm] = count
+
+            def fn(pos, boxes):  # one evaluation per step, split into keys
+                res = count(pos, boxes)
+                counts = res[0] if strict else res
+                out = {k: counts[:, p] for p, k in enumerate(keys)}
+                if strict:
+                    out[f"__guard__{nm}"] = res[1]
+                return out
+            return fn
+
+        self._multi_factories.append(factory)
+        if strict:
+            self._dense_strict.append((nm, analysis))
+        return self
+
+    def _remapped(self, analysis, sel):
+        """`analysis` in the shipped layout `sel` (None: the full system)."""
+        from ..system.hbonds import remap_analysis
+
+        if sel is None:
+            return analysis
+        lut = np.full(self.system.get_n_atoms(), -1, np.int64)
+        lut[sel] = np.arange(sel.shape[0])
+        return remap_analysis(analysis, lut)
 
     def add_kinetic_energy(self, group: str, name: str | None = None):
         """Per-frame kinetic energy of a group -> [F] kJ/mol from TRR
@@ -768,10 +858,13 @@ class TrajectoryAnalysis:
         None = the full system."""
         self._resolve(sel)
         specs = list(self._specs)
+        multi = [factory(sel) for factory in self._multi_factories]
         vel_specs = list(self._vel_specs)
 
         def step(positions, boxes, frame_mask, velocities=None):
             out = {name: fn(positions, boxes) for name, fn in specs}
+            for fn in multi:
+                out.update(fn(positions, boxes))
             for name, fn in vel_specs:
                 out[name] = fn(positions, velocities, boxes, frame_mask)
             return out
@@ -793,6 +886,11 @@ class TrajectoryAnalysis:
         velocity passes read)."""
         from ..parallel.engine import FrameEngine
 
+        if self._hbond_specs and wire not in ("auto", "q16", "f32"):
+            from ..errors import HBondError
+
+            raise HBondError("hbond observables need absolute per-frame "
+                             "coordinates; use wire='q16' or 'f32'", code="InvalidWire")
         if wire not in ("auto", "q16", "f32"):
             raise ParallelError(f"wire '{wire}' is {_LATER}")
         wire = "q16" if wire == "auto" else wire
@@ -810,7 +908,12 @@ class TrajectoryAnalysis:
         engine = FrameEngine(self.step_fn(sel), self.device,
                              box="matrix" if self.triclinic else "lengths",
                              aux=aux)
-        return PipelineRunner(self.system, engine, sel, wire)
+        # hbond analyses in the shipped layout (the cell scorer bins and
+        # the strict re-score reads the shipped coordinates)
+        return PipelineRunner(
+            self.system, engine, sel, wire,
+            hbond_specs=[(nm, self._remapped(a, sel)) for nm, a in self._hbond_specs],
+            dense_strict=[(nm, self._remapped(a, sel)) for nm, a in self._dense_strict])
 
     def run(self, filename, *, group: str | None = None, batch_size: int = 32,
             start_time=None, end_time=None, step=None, progress=None,
@@ -824,11 +927,20 @@ class TrajectoryAnalysis:
 class PipelineRunner:
     """A compiled TrajectoryAnalysis pass, reusable across files/calls."""
 
-    def __init__(self, system, engine, sel, wire):
+    def __init__(self, system, engine, sel, wire, hbond_specs=(), dense_strict=()):
+        """`hbond_specs` / `dense_strict`: (name, HBondAnalysis in the
+        shipped layout) of the cell scorer and of the strict dense
+        counters."""
         self.system = system
         self.engine = engine
         self.sel = sel
         self.wire = wire
+        self.hbond_specs = list(hbond_specs)
+        self.dense_strict = list(dense_strict)
+        # of the last pass: name -> guarded triples per frame of each strict
+        # dense counter, and the seconds its flagged frames took to re-score
+        self.last_guards = {}
+        self.last_rescore_seconds = {}
 
     def _reader(self, filename, batch_size, start_time=None, end_time=None,
                 step=None, progress=None):
@@ -894,6 +1006,7 @@ class PipelineRunner:
 
         if isinstance(filename, DeviceTrajectory):
             dt = filename
+            self._refuse_cells()
             self._check_layout(dt)
             fused = os.environ.get("GROAN_RESIDENT_FUSED", "auto")
             if fused == "1" or (fused == "auto"
@@ -901,15 +1014,94 @@ class PipelineRunner:
                 out = self.engine.run_resident_fused(dt, batch_size=batch_size)
             else:
                 out = self.engine.run_resident(dt, batch_size=batch_size)
+            self._finish_dense_guards(out, lambda ids: self._window_frames(dt, ids))
             out["times"] = dt.times
             out["steps"] = dt.steps
             return out
         reader = self._reader(filename, batch_size, start_time, end_time, step,
                               progress)
-        out = self.engine.run(reader.batches(wire=self.wire))
+        for _, analysis in self.hbond_specs:
+            analysis.batch_stats = []
+        hb_counts = {nm: [] for nm, _ in self.hbond_specs}
+
+        def on_batch(fb):
+            pos, boxes = fb.positions, fb.box_lengths()
+            q_pos = inv = None
+            if fb.wire == "q16":
+                # ship the raw ints; dequantize a host copy for candidate
+                # binning and the exact re-score (the device's arithmetic)
+                q_pos = pos
+                inv = np.float32(1.0) / np.asarray(fb.precisions, np.float32)
+                pos = pos.astype(np.float32) * inv[:, None, None]
+            for nm, analysis in self.hbond_specs:
+                hb_counts[nm].append(analysis.analyze_batch(
+                    pos, boxes, counts_only=True, q_positions=q_pos, inv_prec=inv))
+
+        out = self.engine.run(reader.batches(wire=self.wire),
+                              on_batch=on_batch if self.hbond_specs else None)
+        for nm, analysis in self.hbond_specs:
+            for pair in analysis.pairs:
+                out[f"{nm}_{pair[0]}_{pair[1]}"] = (
+                    np.concatenate([c[pair] for c in hb_counts[nm]])
+                    if hb_counts[nm] else np.zeros(0, np.int64))
+        frames = reader.selected_frames()
+        self._finish_dense_guards(
+            out, lambda ids: self._file_frames(reader, frames[ids]))
         out["times"] = reader.times
         out["steps"] = reader.steps
         return out
+
+    # ------------------------------------------------------------ hbonds
+    def _refuse_cells(self) -> None:
+        if self.hbond_specs:
+            raise ParallelError(
+                "hbond analyses with method='cells' generate candidates on the "
+                "host from each streamed batch; run them with a filename")
+
+    @staticmethod
+    def _file_frames(reader, frame_ids):
+        """(float32 positions, box lengths) of frames read again from the
+        file, in the shipped layout."""
+        fb = reader.read_frames(frame_ids)
+        return np.asarray(fb.positions, np.float32), fb.box_lengths()
+
+    @staticmethod
+    def _window_frames(dt, ids):
+        """(float32 positions, box lengths) of frames of a resident window,
+        dequantized on the host as the device does (the DeviceTrajectory
+        contract: bit-identical to the file's float decode)."""
+        idx = torch.as_tensor(ids, device=dt.pos.device)
+        pos = dt.pos[idx].cpu().numpy()
+        boxes = dt.boxes[idx].cpu().numpy().astype(np.float32)
+        if dt.kind == "q16":
+            inv = dt.inv_prec[idx].cpu().numpy().astype(np.float32)
+            pos = pos.astype(np.float32) * inv[:, None, None]
+        return np.asarray(pos, np.float32), boxes
+
+    def _finish_dense_guards(self, out, frames_of) -> None:
+        """Strict dense hbonds: every frame whose in-step guard count is
+        nonzero had a decision within float reach of its threshold; its
+        counts are replaced by the exact cell path's on the frames from
+        `frames_of(ids)` (JAX `models/pipeline.py:1361-1389`,
+        `:1430-1467`).  The guard keys never reach the caller."""
+        self.last_guards, self.last_rescore_seconds = {}, {}
+        for nm, analysis in self.dense_strict:
+            g = out.pop(f"__guard__{nm}", None)
+            if g is None:
+                continue
+            self.last_guards[nm] = g = np.asarray(g)
+            bad = np.nonzero(g > 0)[0]
+            if bad.size == 0:
+                continue
+            t0 = time.perf_counter()
+            pos, boxes = frames_of(bad)
+            res = analysis.analyze_batch(pos, boxes, counts_only=True)
+            for pair in analysis.pairs:
+                key = f"{nm}_{pair[0]}_{pair[1]}"
+                fixed = np.asarray(out[key]).copy()
+                fixed[bad] = res[pair]
+                out[key] = fixed
+            self.last_rescore_seconds[nm] = time.perf_counter() - t0
 
 
 def run_many(analyses, trajectory, *, batch_size: int = 32):
@@ -935,11 +1127,13 @@ def run_many(analyses, trajectory, *, batch_size: int = 32):
                for a in analyses]
     sets = []
     for r in runners:
+        r._refuse_cells()
         r._check_layout(trajectory)
         sets.append(r.engine.run_resident(trajectory, batch_size=batch_size,
                                           fetch=False))
     results = FrameEngine.fetch_packed_many(sets)
-    for out in results:
+    for r, out in zip(runners, results):
+        r._finish_dense_guards(out, lambda ids: r._window_frames(trajectory, ids))
         out["times"] = trajectory.times
         out["steps"] = trajectory.steps
     return results

@@ -191,13 +191,18 @@ class FrameEngine:
             s.copied.synchronize()  # its last H2D copy has left the pinned buffer
         return s
 
-    def run(self, batches):
+    def run(self, batches, on_batch=None):
         """Run the step over FrameBatches -> dict of `[F, ...]` numpy
-        arrays, concatenated over the trajectory (padded frames dropped)."""
+        arrays, concatenated over the trajectory (padded frames dropped).
+        `on_batch(frame_batch)` is called with each host FrameBatch once
+        its step is dispatched (JAX `engine.py:410-489`): the hydrogen-bond
+        cell scorer's host work there overlaps the step on the device."""
         cuda = self.device.type == "cuda"
         compute = torch.cuda.current_stream(self.device) if cuda else None
         copy = torch.cuda.Stream(self.device) if cuda else None
         clocks = {"decode_wait": [], "stage": [], "dispatch": []}
+        if on_batch is not None:
+            clocks["on_batch"] = []
         self.last_stage_seconds = clocks
         slots = [None, None]
         outs, trims = [], []
@@ -239,6 +244,10 @@ class FrameEngine:
             if cuda:
                 slot.consumed.record(compute)
             clocks["dispatch"].append(_pc() - t0)
+            if on_batch is not None:
+                t0 = _pc()
+                on_batch(fb)
+                clocks["on_batch"].append(_pc() - t0)
             outs.append(res)
             trims.append(b)
             i += 1

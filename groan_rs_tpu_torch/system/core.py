@@ -3,12 +3,14 @@
 The port of `groan_rs_tpu.system.System` for what a user needs to build a
 system from files and analyse it: topology, box, the current frame's
 positions and velocities (with presence masks), precision, index groups (`system/groups.py`: GSL queries, algebra, NDX files) and
-labeled atoms, element and property guessing (`system/guess.py`),
-`from_file` for GRO, PDB and PQR files and their writers.
+labeled atoms, element, property and bond guessing (`system/guess.py`),
+hydrogen bonds (`system/hbonds.py`), the current frame's box, step and
+time (set per frame by `TrajReader.__iter__`), `from_file` for GRO, PDB
+and PQR files and their writers.
 `group_get_com` runs the port's own refined centre on the CPU (the K1 +
 K2 twins), as RMSD's reference preparation needs
-(`groan_rs_tpu/system/rmsd.py:18-47`).  TPR files, bond guessing and
-group-by-geometry are not ported yet (ROADMAP.md).
+(`groan_rs_tpu/system/rmsd.py:18-47`).  TPR files and group-by-geometry
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..errors import FileTypeError, GroupError, SimBoxError
 from ..files import FileType
 from .groups import Group, GroupsMixin
 from .guess import GuessMixin
+from .hbonds import HBondsMixin
 
 __all__ = ["System"]
 
@@ -40,7 +43,7 @@ def _vectors(arr, present, n):
     return arr, present
 
 
-class System(GroupsMixin, GuessMixin):
+class System(GroupsMixin, GuessMixin, HBondsMixin):
     def __init__(self, name: str, topology: Topology, simbox: SimBox | None = None,
                  positions: np.ndarray | None = None,
                  velocities: np.ndarray | None = None,
@@ -52,6 +55,8 @@ class System(GroupsMixin, GuessMixin):
         self.positions, self.has_position = _vectors(positions, None, n)
         self.velocities, self.has_velocity = _vectors(velocities, has_velocity, n)
         self.precision = 100
+        self.step = 0
+        self.time = 0.0
         self.labeled_atoms: dict[str, int] = {}
         # reserved groups 'all' / 'All' (reference: system/mod.rs:156)
         self.groups: dict[str, Group] = {
@@ -152,6 +157,21 @@ class System(GroupsMixin, GuessMixin):
 
     def get_box(self) -> SimBox | None:
         return self.simbox
+
+    def set_box(self, simbox: SimBox | None) -> None:
+        self.simbox = simbox
+
+    def get_step(self) -> int:
+        return self.step
+
+    def set_step(self, v: int) -> None:
+        self.step = int(v)
+
+    def get_time(self) -> float:
+        return self.time
+
+    def set_time(self, v: float) -> None:
+        self.time = float(v)
 
     def box_lengths(self) -> np.ndarray:
         """`(3,)` float32 orthogonal box lengths (raises SimBoxError for a

@@ -236,9 +236,13 @@ def test_error_paths_match_jax(systems, case):
 
 
 def test_unported_still_raise(systems):
-    """hbonds still raise; a triclinic observables pass is ported and runs
+    """Meshes still raise; hydrogen bonds are ported (tests/test_torch_hbonds.py)
+    and the cell method refuses a resident window in `run_many`, as in the
+    JAX package; a triclinic observables pass is ported and runs
     (tests/test_torch_triclinic_pipeline.py); a velocity step over an XTC
     raises the JAX engine's error (no velocities in the file)."""
+    from groan_rs_tpu_torch.system.hbonds import HBondChain
+
     xtc, *_, tsys = systems
     out = (TTA(tsys, device="cpu", triclinic=True).add_gyration("Protein")
            .add_box_volume().runner().run(xtc, batch_size=5))
@@ -246,7 +250,13 @@ def test_unported_still_raise(systems):
     assert np.isfinite(out["gyration_Protein"]).all()
     assert out["box_volume"].shape == (N_FRAMES,)
     with pytest.raises(ParallelError, match="ROADMAP"):
-        TTA(tsys, device="cpu").add_hbonds("Protein")
+        TTA(tsys, device="cpu", mesh=object())
+    water = [HBondChain("name OW", "name OW", "name HW1 HW2")]
+    cells = TTA(tsys, device="cpu").add_hbonds(water, [(0, 0)], method="cells")
+    dt = TTA(tsys, device="cpu").add_com("Water").runner(ship="all").load_device(
+        xtc, batch_size=5)
+    with pytest.raises(ParallelError, match="filename"):
+        run_many([cells], dt, batch_size=5)
     pipe = TTA(tsys, device="cpu").add_velocity_step(
         "vsum", lambda pos, vel, boxes, mask: vel.sum((1, 2)), touches="Protein")
     with pytest.raises(ParallelError, match="use TRR"):

@@ -144,10 +144,15 @@ def test_resident_layout_is_checked(systems):
 
 
 def test_unported_features_raise(systems):
-    """Meshes, other wires and hbonds still raise; triclinic=True is ported
-    and runs (tests/test_torch_triclinic_pipeline.py), and so are the
-    velocity observables (tests/test_torch_velocity.py), which refuse an
-    XTC as the JAX engine does: it carries no velocities."""
+    """Meshes and other wires still raise; hydrogen bonds are ported
+    (tests/test_torch_hbonds.py) and refuse what the JAX package refuses:
+    the cell method on a resident window, the delta wire.  triclinic=True
+    is ported and runs (tests/test_torch_triclinic_pipeline.py), and so are
+    the velocity observables (tests/test_torch_velocity.py), which refuse
+    an XTC as the JAX engine does: it carries no velocities."""
+    from groan_rs_tpu_torch.errors import HBondError
+    from groan_rs_tpu_torch.system.hbonds import HBondChain
+
     xtc, _, tsys = systems
     out = TTA(tsys, device="cpu", triclinic=True).add_com("Protein").runner().run(
         xtc, batch_size=5)
@@ -157,8 +162,14 @@ def test_unported_features_raise(systems):
         TTA(tsys, device="cpu", mesh=object())
     with pytest.raises(ParallelError, match="ROADMAP"):
         TTA(tsys, device="cpu").add_com("Protein").runner(wire="delta")
-    with pytest.raises(ParallelError, match="ROADMAP"):
-        TTA(tsys, device="cpu").add_hbonds("Protein")
+    hb = TTA(tsys, device="cpu").add_hbonds(
+        [HBondChain("Peptide", "Peptide", "Peptide")], [(0, 0)], method="cells")
+    runner = hb.runner()
+    with pytest.raises(ParallelError, match="filename"):
+        runner.run(runner.load_device(xtc, batch_size=5))
+    with pytest.raises(HBondError) as e:
+        hb.runner(wire="delta")
+    assert e.value.code == "InvalidWire"
     for add in ("add_kinetic_energy", "add_temperature"):
         pipe = getattr(TTA(tsys, device="cpu"), add)("Protein")
         with pytest.raises(ParallelError, match="use TRR"):
