@@ -54,7 +54,7 @@ Phases, each of which raises on failure (the run then exits non-zero):
    fitted RMSD, peptide-membrane min distance and contacts (0.4 nm), batch
    12, streamed twice; against the triclinic float64 oracles (COM,
    distance, RMSD within 2e-3 on 24 frames, min distance within 1e-4 and
-   contacts inside the oracle's bounds on 2); the resident passes equal
+   contacts inside the oracle's bounds on 1); the resident passes equal
    streamed; the box inverse, the volume and the triclinic centre and pair
    path make no host synchronisation; an orthorhombic treatment of the
    diagonal puts the frame-0 COM more than 1 nm off; K1, K2 and K3 never
@@ -95,6 +95,22 @@ Phases, each of which raises on failure (the run then exits non-zero):
    `strict=False` gets wrong are printed, with the guarded triples, the
    re-score, the scorer's and counter's device ms, the candidate and
    wire counts and `max_memory_allocated`.
+12. The reference's System API, 1M atoms, on phase 10's System (guessed
+   masses, GSL groups, phase 11's guessed bonds) on the card by default:
+   `xtc_iter` over every frame with `group_get_com`, `group_get_center`
+   and `group_distance`, equal to a runner pass on the same System within
+   1e-6 and to float64 oracles within 2e-3 (12 frames);
+   `calc_rmsd_and_fit` equal to the runner's RMSD within 1e-5, the fitted
+   Protein's RMSD recomputed in float64 within 1e-4 on 2 frames; on frame
+   0 `make_molecules_whole`, `make_group_whole`, `atoms_center`,
+   `group_create_from_geometry` (a cylinder) and a sphere's
+   `filter_geometry(...).get_com()` against float64 oracles (1e-4 nm,
+   membership exact outside 1e-5 nm of the surface); 12 frames of the
+   Protein written as XTC (back within half of 1/precision) and TRR (bit
+   for bit); `traj_iter_map_reduce` (K1 + K2 COM, K3 min distance, a fold
+   on the device) equal to the runner within 1e-6, and a checkpointed pass
+   stopped after two batches resuming to the same carry.  K1, K2 and K3
+   launch exactly as predicted; their launches join the kernels' line.
 
 Phase 7 also prints the worst of the 1M-atom dihedral sites: its error,
 central bond, bend angles, lever arm, whether it crosses the box, and
@@ -898,7 +914,7 @@ def triclinic_phase(torch, dev):
     for k, e in errs.items():
         check(e < 2e-3, f"{k} vs triclinic float64 oracle over {PARITY_FRAMES} "
               f"frames (max err {e:.3e})")
-    for f in range(2):
+    for f in range(1):
         p = coords[f]
         t0 = time.perf_counter()
         best, lo, hi = testing.host_pairs_triclinic(p[:min(400, n_prot)],
@@ -1637,6 +1653,278 @@ def hbonds_phase(torch, xtc, offs, nat, frame0, box, fsys, dev):
     return counts
 
 
+def _wrap64(x, box):
+    """Float64 `wrap` with the reference's loop semantics (x == kL, k >= 1,
+    stays at L)."""
+    L = np.asarray(box, np.float64)
+    m = np.mod(x, L)
+    return np.where((m == 0) & (x > 0), L, m)
+
+
+def _unwrap64(ref, p, box):
+    """Float64 `vector_to` placement of `p` around `ref` (rows or one
+    point) -> (positions, distance of each coordinate from its image
+    boundary)."""
+    L = np.asarray(box, np.float64)
+    d = np.mod(np.asarray(p, np.float64) - ref + L / 2, L)
+    return ref + d - L / 2, np.minimum(d, L - d)
+
+
+def _near_check(got, want, edge, what, tol=1e-4):
+    """Positions within `tol`, except coordinates within 1e-5 nm of an
+    image boundary (float32 and float64 may put those a box apart)."""
+    bad = np.abs(np.asarray(got, np.float64) - want) > tol
+    excused = bad & (edge < 1e-5)
+    check(not (bad & ~excused).any(),
+          f"{what} equals the float64 oracle within {tol} nm ({int(excused.sum())} "
+          f"coordinates within 1e-5 nm of an image boundary excused; max err "
+          f"{np.abs(np.where(excused, 0, got - want)).max():.2e})")
+
+
+def system_api_phase(torch, xtc, offs, nat, box, system, dev):
+    """Phase 12: the reference's System API at 1M atoms on phase 10's
+    System (guessed masses, GSL groups, phase 11's guessed bonds) -> the
+    K1/K2/K3 launches of its calls."""
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch.core.dimension import Dimension
+    from groan_rs_tpu_torch.core.shapes import Cylinder, Sphere
+    from groan_rs_tpu_torch.errors import ParallelError
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.models import TrajectoryAnalysis
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import distances as D
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    say(f"phase 12: the System API, {nat} atoms x {N_FRAMES} frames")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    check(system.device == dev, f"the System computes on {system.device} by default")
+    lay = testing.synthetic_layout(nat)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    w = system.topology.mass[:n_prot]
+    ref = system.copy()  # frame 0 (the GRO's grid points): the RMSD reference
+    ref_com = ref.group_get_com("Protein")
+    box64 = np.asarray(box, np.float64)
+    _, steps, times, _ = native.xtc_scan(xtc)
+
+    # what the per-call path must reproduce: the runner over the same
+    # System, the same kernels on the same float32 inputs
+    want = (TrajectoryAnalysis(system, device=dev)
+            .add_com("Protein", name="com").add_center("Membrane", name="cog")
+            .add_distance("Protein", "Membrane", name="dist")
+            .add_rmsd("Protein", reference=ref, name="rmsd")
+            .add_min_distance("Peptide", "Membrane", name="mindist")
+            .runner().run(xtc, batch_size=BATCH))
+
+    K.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # ---- the per-frame loop ------------------------------------------------
+    com, cog, dist, lat = [], [], [], []
+    t0 = time.perf_counter()
+    for s in system.xtc_iter(xtc):
+        t1 = time.perf_counter()
+        com.append(s.group_get_com("Protein"))
+        lat.append(time.perf_counter() - t1)
+        cog.append(s.group_get_center("Membrane"))
+        dist.append(s.group_distance("Protein", "Membrane", Dimension.XYZ))
+    t_loop = time.perf_counter() - t0
+    com, cog, dist = np.asarray(com), np.asarray(cog), np.asarray(dist)
+    check(com.shape == (N_FRAMES, 3) and np.isfinite(com).all(),
+          f"xtc_iter: {N_FRAMES} frames in {t_loop:.2f} s, group_get_com median "
+          f"{1e3 * np.median(lat):.3f} ms a call on the card")
+    for key, got in (("com", com), ("cog", cog), ("dist", dist)):
+        e = float(np.abs(got - want[key]).max())
+        check(e <= 1e-6, f"per-frame {key} equals the runner's (max diff {e:.1e})")
+    n_or = min(12, N_FRAMES)
+    coords, *_ = native.xtc_read_frames(xtc, offs[:n_or], nat, stop_after=w0)
+    # float64 oracles: the COM (the guessed masses), the membrane's centre
+    # and the distance between the two centres of geometry
+    errs = {"com": 0.0, "cog": 0.0, "dist": 0.0}
+    for f in range(n_or):
+        ca = testing.host_refined_center(coords[f][:n_prot], box, w)
+        cb = testing.host_refined_center(coords[f][n_prot:w0], box)
+        d = testing.host_refined_center(coords[f][:n_prot], box) - cb
+        d -= box64 * np.round(d / box64)
+        for key, e in (("com", np.abs(com[f] - ca).max()), ("cog", np.abs(cog[f] - cb).max()),
+                       ("dist", abs(dist[f] - np.sqrt((d * d).sum())))):
+            errs[key] = max(errs[key], float(e))
+    check(max(errs.values()) < 2e-3, f"com, cog and distance vs float64 oracles over "
+          f"{n_or} frames (max err {errs})")
+
+    # ---- the fitting iterator --------------------------------------------------
+    t0 = time.perf_counter()
+    rmsd, fitted = [], {}
+    for k, (s, r) in enumerate(system.xtc_iter(xtc).calc_rmsd_and_fit(ref, "Protein")):
+        rmsd.append(r)
+        if k < 2:
+            fitted[k] = s.positions[:n_prot].copy()
+    t_fit = time.perf_counter() - t0
+    e = float(np.abs(np.asarray(rmsd) - want["rmsd"]).max())
+    check(len(rmsd) == N_FRAMES and e <= 1e-5,
+          f"calc_rmsd_and_fit: {N_FRAMES} frames in {t_fit:.2f} s = "
+          f"{N_FRAMES / t_fit:.2f} frames/s; RMSD equals the runner's (max diff {e:.1e})")
+    half = box64 / 2
+    ref_prep = _wrap64(ref.positions[:n_prot] + (half - ref_com), box)
+    for k, pos in fitted.items():
+        dev64 = (pos.astype(np.float64) - ref_com) - (ref_prep - half)
+        r64 = float(np.sqrt((w * (dev64 ** 2).sum(1)).sum() / w.astype(np.float64).sum()))
+        check(abs(r64 - rmsd[k]) < 1e-4, f"frame {k}: the fitted Protein's RMSD to the "
+              f"reference in float64 {r64:.6f} vs {rmsd[k]:.6f}")
+
+    # ---- modifying methods on frame 0 ------------------------------------------
+    next(iter(system.xtc_iter(xtc, end_time=float(times[0]))))
+    p0 = system.positions.astype(np.float64)
+    t0 = time.perf_counter()
+    system.make_molecules_whole()
+    t_whole = time.perf_counter() - t0
+    mol, refs = system.topology.molecule_ids(), system.topology.mol_references()
+    ref_pos = _wrap64(p0[refs], box)[mol]
+    want_pos, edge = _unwrap64(ref_pos, p0, box)
+    _near_check(system.positions, want_pos, edge,
+                f"make_molecules_whole ({int(mol.max()) + 1} molecules, {t_whole:.2f} s)")
+    p1 = system.positions.astype(np.float64)
+    est = system.group_estimate_center("Protein").astype(np.float64)
+    system.make_group_whole("Protein")
+    want_prot, edge = _unwrap64(est, p1[:n_prot], box)
+    _near_check(system.positions[:n_prot], want_prot, edge, "make_group_whole('Protein')")
+    est2 = system.group_estimate_center("Protein")
+    p2 = system.positions.astype(np.float64)
+    system.atoms_center("Protein", Dimension.XYZ)
+    shifted = p2 + (system.get_box_center() - est2).astype(np.float64)
+    _near_check(system.positions, _wrap64(shifted, box),
+                np.minimum(np.abs(shifted - np.round(shifted / box64) * box64), box64),
+                "atoms_center('Protein', XYZ)")
+    cyl = Cylinder(system.get_box_center(), 4.0, float(box[2]), Dimension.Z)
+    t0 = time.perf_counter()
+    system.group_create_from_geometry("Core", "all", cyl)
+    t_geo = time.perf_counter() - t0
+    p3 = system.positions.astype(np.float64)
+    dxy = p3[:, :2] - box64[:2] / 2
+    dxy -= box64[:2] * np.round(dxy / box64[:2])
+    margin = 4.0 - np.sqrt((dxy ** 2).sum(1))
+    got = system.group_mask("Core")
+    far = np.abs(margin) > 1e-5
+    check(np.array_equal(got[far], margin[far] > 0),
+          f"group_create_from_geometry(cylinder r 4 nm): {int(got.sum())} atoms "
+          f"({t_geo:.2f} s), exact outside 1e-5 nm of the surface "
+          f"({int((~far).sum())} atoms within it)")
+    sphere = Sphere(system.get_box_center(), 5.0)
+    it = system.group_iter("Membrane").filter_geometry(sphere)
+    sel = it.indices
+    d3 = p3[n_prot:w0] - box64 / 2
+    d3 -= box64 * np.round(d3 / box64)
+    m3 = 5.0 - np.sqrt((d3 ** 2).sum(1))
+    far3 = np.abs(m3) > 1e-5
+    in3 = np.isin(np.arange(n_prot, w0), sel)
+    check(np.array_equal(in3[far3], m3[far3] > 0),
+          f"group_iter('Membrane').filter_geometry(sphere r 5 nm): {len(sel)} atoms, "
+          "exact outside 1e-5 nm of the surface")
+    fcom = it.get_com()
+    e = float(np.abs(fcom - testing.host_refined_center(
+        system.positions[sel], box, system.topology.mass[sel])).max())
+    check(e < 1e-4, f"its get_com vs float64 oracle ({e:.2e})")
+
+    # ---- the writers ---------------------------------------------------------
+    n_w = min(BATCH, N_FRAMES)
+    paths = [os.path.join(K.BUILD_DIR, f"smoke_api_protein.{x}") for x in ("xtc", "trr")]
+    t0 = time.perf_counter()
+    system.group_traj_writer_init("Protein", paths[0])
+    system.trr_group_writer_init("Protein", paths[1])
+    written = []
+    for s in system.xtc_iter(xtc, end_time=float(times[n_w - 1])):
+        s.traj_write_frame()
+        written.append(s.positions[:n_prot].copy())
+    system.traj_close()
+    t_write = time.perf_counter() - t0
+    prot = system.group_extract("Protein")
+    back = [s.positions.copy() for s in prot.xtc_iter(paths[0])]
+    gap = max(float(np.abs(b - a).max()) for a, b in zip(written, back))
+    prec = system.get_precision()
+    check(len(back) == n_w and gap <= 0.5 / prec + 1e-6,
+          f"XTC of the Protein ({n_w} frames, written with the TRR in {t_write:.2f} s) "
+          f"reads back within half of 1/precision ({gap:.2e} <= {0.5 / prec:.1e})")
+    back = [s.positions.copy() for s in prot.trr_iter(paths[1])]
+    check(len(back) == n_w and all(np.array_equal(a, b) for a, b in zip(written, back)),
+          "the TRR reads back bit for bit")
+    for p in paths:
+        os.unlink(p)
+
+    # ---- map-reduce --------------------------------------------------------------
+    w_t = torch.as_tensor(w, device=dev)
+    pep = min(400, n_prot)
+
+    def body(pos, boxes, mask):
+        return {"com": C.center(pos[:, :n_prot], boxes[:, None, :], weights=w_t),
+                "mindist": D.min_distance(pos[:, :pep], pos[:, n_prot:w0], boxes)}
+
+    def fold(carry, out, mask):
+        return {"sum": carry["sum"] + (out["com"] * mask[:, None]).sum(0),
+                "min": torch.minimum(carry["min"],
+                                     torch.where(mask, out["mindist"], torch.inf).min())}
+
+    def init():
+        return {"sum": torch.zeros(3, device=dev),
+                "min": torch.full((), torch.inf, device=dev)}
+
+    t0 = time.perf_counter()
+    carry, out = system.traj_iter_map_reduce(xtc, body, init=init(), fold=fold,
+                                             collect=True, batch_size=BATCH)
+    t_mr = time.perf_counter() - t0
+    for key in ("com", "mindist"):
+        e = float(np.abs(out[key] - want[key]).max())
+        check(out[key].shape[0] == N_FRAMES and e <= 1e-6,
+              f"map-reduce per-frame {key} equals the runner's (max diff {e:.1e})")
+    check(float(carry["min"]) == float(want["mindist"].min()),
+          f"the folded minimum is the frames' ({float(carry['min']):.6f}; pass {t_mr:.2f} s)")
+    ckpt = os.path.join(K.BUILD_DIR, "smoke_api_checkpoint.npz")
+    if os.path.exists(ckpt):
+        os.unlink(ckpt)
+    calls = {"n": 0}
+
+    def failing(pos, boxes, mask):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("stop after the second batch")
+        return body(pos, boxes, mask)
+
+    try:
+        system.traj_iter_map_reduce(xtc, failing, init=init(), fold=fold,
+                                    batch_size=BATCH, checkpoint=ckpt)
+        stopped = False
+    except ParallelError:
+        stopped = True
+    resumed = system.traj_iter_map_reduce(xtc, body, init=init(), fold=fold,
+                                          batch_size=BATCH, checkpoint=ckpt)
+    os.unlink(ckpt)
+    same = all(torch.equal(resumed[k].cpu(), carry[k].cpu()) for k in carry)
+    check(stopped and same, "a checkpointed pass stopped after its second batch resumes "
+          "to the uninterrupted result, bit for bit")
+
+    counts = dict(K.launch_counts)
+    n_batches = -(-N_FRAMES // BATCH)
+    # loop: com 1 + cog 1 + distance 2 per frame; fit: the reference's COM
+    # and one per batch (48 frames, batch 64); frame 0: two estimates, make
+    # group whole, atoms_center, the filtered COM; map-reduce: every batch,
+    # the two before the stop and the rest after it
+    predicted = {
+        "bai_breen_estimate": 4 * N_FRAMES + 2 + 5 + 2 * n_batches,
+        "bai_breen_refine": 4 * N_FRAMES + 2 + 1 + 2 * n_batches,
+        "pair_reduce": 2 * n_batches}
+    say(f"  launches {counts}, predicted {predicted}")
+    if cuda:
+        check(counts == predicted, "K1, K2 and K3 launched as the code predicts")
+        ms = device_ms(lambda: system.group_get_com("Protein"), 10)
+        say(f"  group_get_com('Protein'): {ms} device ms a call (profiler) against "
+            f"{1e3 * np.median(lat):.3f} ms on the host clock")
+        say(f"  max_memory_allocated over phase 12: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    say(f"  phase 12 System-API seconds (after the runner's reference pass): "
+        f"{time.perf_counter() - t_phase:.2f}")
+    return counts
+
+
 def main():
     import torch
 
@@ -1796,8 +2084,12 @@ def main():
 
     # ---- 11. hydrogen bonds and bond guessing --------------------------------
     hb_counts = hbonds_phase(torch, xtc, offs, nat, c0[0], box, fsys, dev)
-    del fsys
     t_phase = phase_seconds(11, t_phase)
+
+    # ---- 12. the System API ---------------------------------------------------
+    api_counts = system_api_phase(torch, xtc, offs, nat, box, fsys, dev)
+    del fsys
+    t_phase = phase_seconds(12, t_phase)
 
     # ---- where the time goes: one profiled pass of each kind -----------
     # the triclinic main path over one batch: phase 9's 12-frame file (the
@@ -1847,7 +2139,7 @@ def main():
         "pair_reduce": "per-axis minimum image (torch.cdist has none)"}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
-         "launches": counts[k] + file_counts[k] + hb_counts[k],
+         "launches": counts[k] + file_counts[k] + hb_counts[k] + api_counts[k],
          "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
@@ -1857,7 +2149,7 @@ def main():
          "shape": rec[k]["shape"], "observables_launches": obs_counts[k],
          "triclinic_launches": tri_counts[k] + tobs_counts[k],
          "main_path_launches": counts[k], "files_launches": file_counts[k],
-         "hbonds_launches": hb_counts[k]}
+         "hbonds_launches": hb_counts[k], "system_api_launches": api_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,9 @@ from .system import System
 __all__ = ["system_from_state"]
 
 
-def system_from_state(state: dict) -> System:
+def system_from_state(state: dict, device=None) -> System:
+    """The System of a state dict; `device` as for `System` (None: the
+    CUDA card, resolved at the first call that computes)."""
     pos = np.asarray(state["positions"], np.float32)
     n = pos.shape[0]
     topo = Topology(n)
@@ -49,7 +51,8 @@ def system_from_state(state: dict) -> System:
     box = np.asarray(state["box"], np.float32)
     simbox = (SimBox.from_matrix(box) if box.shape == (3, 3)
               else SimBox.from_lengths(*map(float, box.reshape(3))))
-    s = System(state.get("name", "system"), topo, simbox=simbox, positions=pos)
+    s = System(state.get("name", "system"), topo, simbox=simbox, positions=pos,
+               device=device)
     s.set_precision(int(state.get("precision", 100)))
     for name, idx in state.get("groups", {}).items():
         s.group_create_from_indices(name, idx)

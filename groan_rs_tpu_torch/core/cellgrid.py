@@ -8,9 +8,6 @@ float32 arithmetic of the JAX `pbc.wrap`); neighbour queries visit a
 relative cell range (default -1..1 per axis) with modular wrap-around,
 never visiting a cell twice.  Atoms are one CSR: the atoms sorted by
 cell, stably, and per-cell offsets.
-
-`neighbors_iter` needs the System's atom iterators, which are not ported
-yet: it raises.
 """
 
 from __future__ import annotations
@@ -105,11 +102,13 @@ class CellGrid:
         return np.concatenate(parts)
 
     def neighbors_iter(self, point, x_range=None, y_range=None, z_range=None):
-        """Needs the System's atom iterators (JAX `system/iterating.py`),
-        which are not ported yet."""
-        raise NotImplementedError(
-            "CellGrid.neighbors_iter needs AtomIterator, which is not ported "
-            "to groan_rs_tpu_torch yet (see ROADMAP.md); use neighbors()")
+        """Chainable atom iterator over `neighbors(point, ...)` (reference:
+        cellgrid.rs:383, whose visit order is undefined; here atoms come in
+        System order, each once)."""
+        from ..system.iterating import AtomIterator
+
+        return AtomIterator(
+            self.system, np.sort(self.neighbors(point, x_range, y_range, z_range)))
 
     def neighbor_cell_pairs(self):
         """Yield (cell_atoms, neighbour_atoms, same_cell) for every non-empty

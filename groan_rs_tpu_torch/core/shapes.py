@@ -1,20 +1,28 @@
-"""Geometric shapes for per-frame membership counts.
+"""Geometric shapes: membership tests for selections and per-frame counts.
 
-Port of the shape classes of `groan_rs_tpu/core/shapes.py:28-235` (the
-reference's `Shape` trait, `src/structures/shape.rs`): `Sphere`,
-`Rectangular`, `Cylinder` and `TriangularPrism` with their attributes and
-getters, in numpy.  Membership is evaluated batched on tensors by
-`ops.geometry.inside_shape`, with the reference's asymmetries (Sphere
-strict `<`, Rectangular and Cylinder inclusive `<=`).  `TriangularPrism`
-has no batched membership test; it exists so that `add_in_shape` can
-refuse it with `ShapeError`, as the JAX package does.
+Port of `groan_rs_tpu/core/shapes.py:28-235` (the reference's `Shape`
+trait, `src/structures/shape.rs`): `Sphere`, `Rectangular`, `Cylinder`
+and `TriangularPrism` with their attributes and getters.
+
+`inside(points, box)` and `inside_naive(points)` take `[..., 3]` points
+(a tensor on any device, or numpy) and return a bool tensor on the
+points' device, in the JAX functions' float32 arithmetic: PBC distances
+by `ops.pbc.distance` (a square root, compared with the radius), oriented
+axis distances folded to [0, L), the reference's asymmetries (Sphere
+strict `<`, Rectangular and Cylinder inclusive `<=`, TriangularPrism's
+height strict).  `TriangularPrism` has no `inside_naive`, as in the JAX
+package.  The batched per-frame count of `TrajectoryAnalysis`
+(`ops.geometry.inside_shape`, JAX `ops/geometry.py`) compares squared
+distances instead and refuses the prism.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..errors import ShapeError
+from ..ops import pbc
 from .dimension import Dimension
 
 __all__ = ["Shape", "Sphere", "Rectangular", "Cylinder", "TriangularPrism"]
@@ -24,9 +32,38 @@ _PLANE = {Dimension.X: Dimension.YZ, Dimension.Y: Dimension.XZ,
           Dimension.Z: Dimension.XY}
 
 
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=like.device)
+
+
+def _points(points) -> torch.Tensor:
+    return torch.as_tensor(points, dtype=torch.float32)
+
+
+def _box(box, p: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(box, dtype=torch.float32, device=p.device)
+
+
+def _axis_distance(p, position, axis: int, box):
+    """1-D oriented PBC distance point -> shape, folded to [0, L)."""
+    L = _box(box, p)[axis]
+    d = pbc.min_image(p[..., axis] - _f32(position[axis], p), L)
+    return torch.where(d < 0.0, d + L, d)
+
+
+def _plane_distance(p, position, plane: Dimension, box):
+    return pbc.distance(p, _f32(position, p), _box(box, p), plane.value)
+
+
 class Shape:
     def get_position(self) -> np.ndarray:
         return self.position.copy()
+
+    def inside(self, points, box) -> torch.Tensor:
+        raise NotImplementedError
+
+    def inside_naive(self, points) -> torch.Tensor:
+        raise NotImplementedError
 
 
 class Sphere(Shape):
@@ -38,6 +75,14 @@ class Sphere(Shape):
 
     def get_radius(self) -> float:
         return self.radius
+
+    def inside(self, points, box) -> torch.Tensor:
+        p = _points(points)
+        return _plane_distance(p, self.position, Dimension.XYZ, box) < _f32(self.radius, p)
+
+    def inside_naive(self, points) -> torch.Tensor:
+        p = _points(points)
+        return pbc.distance_naive(p, _f32(self.position, p)) < _f32(self.radius, p)
 
 
 class Rectangular(Shape):
@@ -55,6 +100,17 @@ class Rectangular(Shape):
 
     def get_z(self) -> float:
         return self.z
+
+    def inside(self, points, box) -> torch.Tensor:
+        p = _points(points)
+        return ((_axis_distance(p, self.position, 0, box) <= _f32(self.x, p))
+                & (_axis_distance(p, self.position, 1, box) <= _f32(self.y, p))
+                & (_axis_distance(p, self.position, 2, box) <= _f32(self.z, p)))
+
+    def inside_naive(self, points) -> torch.Tensor:
+        p = _points(points)
+        d = p - _f32(self.position, p)
+        return (d >= 0).all(-1) & (d <= _f32([self.x, self.y, self.z], p)).all(-1)
 
 
 class Cylinder(Shape):
@@ -82,6 +138,20 @@ class Cylinder(Shape):
 
     def get_plane(self) -> Dimension:
         return self.plane
+
+    def inside(self, points, box) -> torch.Tensor:
+        p = _points(points)
+        d_axis = _axis_distance(p, self.position, AXIS[self.orientation], box)
+        d_plane = _plane_distance(p, self.position, self.plane, box)
+        return (d_axis <= _f32(self.height, p)) & (d_plane <= _f32(self.radius, p))
+
+    def inside_naive(self, points) -> torch.Tensor:
+        p = _points(points)
+        axis = AXIS[self.orientation]
+        d_axis = p[..., axis] - _f32(self.position[axis], p)
+        d_plane = pbc.distance_naive(p, _f32(self.position, p), self.plane.value)
+        return ((d_axis >= 0.0) & (d_axis < _f32(self.height, p))
+                & (d_plane < _f32(self.radius, p)))
 
 
 class TriangularPrism(Shape):
@@ -117,3 +187,24 @@ class TriangularPrism(Shape):
 
     def get_orientation(self) -> Dimension:
         return self.orientation
+
+    def _sign(self, p, a, b):
+        i, j = {Dimension.XY: (0, 1), Dimension.XZ: (0, 2),
+                Dimension.YZ: (1, 2)}[self.plane]
+        return ((p[..., i] - _f32(b[i], p)) * _f32(a[j] - b[j], p)
+                - _f32(a[i] - b[i], p) * (p[..., j] - _f32(b[j], p)))
+
+    def inside(self, points, box) -> torch.Tensor:
+        p = _points(points)
+        d_base = _axis_distance(p, self.base1, AXIS[self.orientation], box)
+        d1 = self._sign(p, self.base1, self.base2)
+        d2 = self._sign(p, self.base2, self.base3)
+        d3 = self._sign(p, self.base3, self.base1)
+        has_neg = (d1 < 0) | (d2 < 0) | (d3 < 0)
+        has_pos = (d1 > 0) | (d2 > 0) | (d3 > 0)
+        return (d_base < _f32(self.height, p)) & ~(has_neg & has_pos)
+
+
+# the reference's `NaiveShape` trait (shape.rs:464) is the no-PBC view of a
+# shape; here every Shape carries `inside_naive` directly
+NaiveShape = Shape

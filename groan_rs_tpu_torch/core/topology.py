@@ -10,8 +10,10 @@ The port of `groan_rs_tpu.core.topology` (`StrColumn` :25-91, `Topology`
 - `resnum`, `atomnum` (int64), `mass` / `has_mass`, `charge` /
   `has_charge`, `vdw` / `has_vdw` (float32 with presence masks) and the
   expected minimum and maximum bond counts;
-- bonds: `add_bond`, `set_bonds_from_pairs`, the sorted adjacency lists
-  `bonded`, its CSR form `bonds_csr` and `molecule_ids`.
+- bonds: `add_bond`, `set_bonds_from_pairs`, `clear_bonds`, the sorted
+  adjacency lists `bonded`, its CSR form `bonds_csr`, `molecule_ids` and
+  `mol_references` (JAX `:185`, `:251`);
+- `copy` and `subset` (a System's copy and extraction).
 
 Bonds are held as one deduplicated `[K, 2]` pair array; the CSR and the
 molecule ids are built from it with numpy and scipy's connected
@@ -80,6 +82,13 @@ class StrColumn:
     def set_where(self, mask, value: str):
         """`value` at every atom of the boolean `mask` (or index array)."""
         self.codes[mask] = self._code(value)
+
+    def copy(self) -> "StrColumn":
+        return StrColumn(categories=list(self.categories), codes=self.codes.copy())
+
+    def take(self, idx) -> "StrColumn":
+        """The column of the atoms `idx` (categories kept)."""
+        return StrColumn(categories=list(self.categories), codes=self.codes[idx].copy())
 
     def values(self) -> np.ndarray:
         cats = np.asarray(self.categories, dtype=object)
@@ -197,6 +206,16 @@ class Topology:
                        else np.zeros((0, 2), np.int64))
         self._invalidate_bonds()
 
+    def clear_bonds(self) -> None:
+        """reference: System::clear_bonds (modifying.rs:480)."""
+        self.set_bonds_from_pairs(np.zeros((0, 2), np.int64))
+
+    def remove_bonds_of(self, i: int) -> None:
+        """Drop every bond of atom `i` (both directions)."""
+        keep = (self._pairs != i).all(axis=1)
+        self._pairs = self._pairs[keep]
+        self._invalidate_bonds()
+
     def add_bond(self, i: int, j: int) -> None:
         """reference: System::add_bond (modifying.rs:235)."""
         n = self.n_atoms
@@ -245,3 +264,52 @@ class Topology:
             rank[np.argsort(first)] = np.arange(first.shape[0])
             self._molecule_id = rank[labels]
         return self._molecule_id
+
+    def mol_references(self) -> np.ndarray:
+        """First atom of each molecule, in molecule-id order (reference:
+        system/mod.rs:65-69)."""
+        mol = self.molecule_ids()
+        first = np.full(int(mol.max()) + 1 if mol.size else 0, self.n_atoms, np.int64)
+        np.minimum.at(first, mol, np.arange(self.n_atoms))
+        return first
+
+    def n_molecules(self) -> int:
+        mol = self.molecule_ids()
+        return int(mol.max()) + 1 if mol.size else 0
+
+    def molecule_indices(self, atom_index: int) -> np.ndarray:
+        """All atoms in the molecule of `atom_index`, sorted."""
+        mol = self.molecule_ids()
+        return np.nonzero(mol == mol[atom_index])[0].astype(np.int64)
+
+    # ------------------------------------------------------------ copies
+    def _columns_from(self, src, idx) -> "Topology":
+        """Fill this topology's columns with `src`'s rows `idx` (a slice
+        or an index array)."""
+        self.resnum = src.resnum[idx].copy()
+        self.atomnum = src.atomnum[idx].copy()
+        for name in ("resname", "atomname", "chain", "element_name",
+                     "element_symbol"):
+            setattr(self, name, getattr(src, name).take(idx))
+        for f in ("charge", "mass", "vdw", "expected_min_bonds",
+                  "expected_max_bonds"):
+            setattr(self, f, getattr(src, f)[idx].copy())
+            setattr(self, "has_" + f, getattr(src, "has_" + f)[idx].copy())
+        return self
+
+    def copy(self) -> "Topology":
+        t = Topology(self.n_atoms)._columns_from(self, slice(None))
+        t._pairs = self._pairs.copy()
+        return t
+
+    def subset(self, indices) -> "Topology":
+        """The topology of the atoms `indices`, the bonds among them
+        renumbered (reference analogue: System::group_extract,
+        system/mod.rs:479)."""
+        idx = np.asarray(indices, np.int64)
+        t = Topology(idx.shape[0])._columns_from(self, idx)
+        new = np.full(self.n_atoms, -1, np.int64)
+        new[idx] = np.arange(idx.shape[0])
+        p = new[self._pairs]
+        t.set_bonds_from_pairs(p[(p >= 0).all(axis=1)])
+        return t

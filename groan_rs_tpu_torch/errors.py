@@ -79,8 +79,24 @@ class AtomError(GroanError):
     """reference: errors.rs AtomError (bond to itself, index out of range)."""
 
 
+class PositionError(AtomError):
+    """reference: errors.rs PositionError (atom has no position)."""
+
+
+class MassError(AtomError):
+    """reference: errors.rs MassError (atom has no mass)."""
+
+
 class SimBoxError(GroanError):
     """reference: errors.rs SimBoxError (missing / non-orthogonal box)."""
+
+
+class DimensionError(GroanError):
+    """Invalid dimension specification."""
+
+
+class LabelError(GroanError):
+    """reference: errors.rs (labeled atoms)."""
 
 
 class ShapeError(GroanError):
@@ -139,3 +155,9 @@ class FileTypeError(GroanError):
 
 class ParallelError(GroanError):
     """Errors surfaced from the parallel pass engine."""
+
+
+class PerformanceWarning(UserWarning):
+    """A usage pattern that pays per-call costs the batched pass avoids
+    (System analysis methods looped over trajectory frames instead of
+    `models.TrajectoryAnalysis`)."""

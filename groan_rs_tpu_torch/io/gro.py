@@ -293,12 +293,28 @@ def format_box_line(simbox: SimBox | None) -> str:
     return " " + " ".join(f"{x:9.5f}" for x in v)
 
 
-def write_gro_frame(system, fh, group: str, write_velocities: bool):
-    """One structure frame (reference: gro_io/mod.rs; the title as
-    determine_title gives it for a structure file)."""
-    indices = system.group_indices(group)
+def frame_title(system, group: str, is_trajectory: bool) -> str:
+    """reference: gro_io/mod.rs determine_title."""
     title = system.get_name() if group == "all" else f"Group `{group}` from {system.get_name()}"
-    fh.write(title + "\n")
+    if is_trajectory:
+        return f"{title} t={_fmt_f32(system.get_time())} step={system.get_step()}"
+    return title
+
+
+def _fmt_f32(v: float) -> str:
+    """Rust f32 Display-like shortest formatting."""
+    f = np.float32(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(float(np.float32(v)))
+
+
+def write_gro_frame(system, fh, group: str, write_velocities: bool,
+                    is_trajectory: bool = False):
+    """One frame: of a structure file, or of a trajectory (the title then
+    carries the time and step)."""
+    indices = system.group_indices(group)
+    fh.write(frame_title(system, group, is_trajectory) + "\n")
     fh.write(f"{len(indices):>5}\n")
     fh.write(format_atom_blob(system, indices, write_velocities).decode())
     fh.write(format_box_line(system.get_box()) + "\n")

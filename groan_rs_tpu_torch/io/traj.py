@@ -1,11 +1,14 @@
-"""Batched trajectory reading for the device pipeline.
+"""Trajectory reading and writing.
 
-Port of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107,
-`XtcSource` :168-220, `TrrSource` :222-257, `TrajReader` :418-690,
-`cat_iter` :1101, the loader :894-958):
+Port of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107, the sources
+:168-392, `TrajReader` :418-891, the loader :894-958,
+`RMSDTrajIterator` :960-1050, the entry points :1062-1118 and the writers
+:1125-1268):
 
-- A source (`XtcSource`, `TrrSource`) scans its file's frame index once
-  (offsets, steps, times).  GRO and TNG trajectories are not ported yet.
+- A source (`XtcSource`, `TrrSource`, `GroSource`) scans its file's frame
+  index once (offsets, steps, times).  A multi-frame GRO is parsed per
+  requested batch, with per-atom velocities.  TNG is not ported yet
+  (ROADMAP.md): `tng_iter` and the TNG writer raise `FileTypeError`.
 - `TrajReader` holds one frame table over one file or several
   concatenated ones: equal times are dropped only at a file boundary
   (duplicates inside one file stay, traj_cat.rs:229-260).  `with_range`
@@ -15,8 +18,8 @@ Port of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107,
 - `batches(wire=...)` yields `[B, K, 3]` numpy `FrameBatch`es decoded in
   bulk by the native codec on a background thread, one batch ahead of
   the consumer.  A batch that straddles two files is read as f32 per
-  part and concatenated; a TRR batch is always f32 and carries the
-  velocities (`FrameBatch.velocities`).
+  part and concatenated; TRR and GRO batches are f32 and carry the
+  velocities (and a TRR batch the forces, when its frames have them).
 - A selection (`group=` or `indices=`) decodes only up to its last atom
   (`stop_after`: the partial-frame early stop of molly_xtc.rs:58-63, a
   byte-range read for TRR) and is then gathered — as a slice when
@@ -27,28 +30,43 @@ Port of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107,
   fallback to f32 when a file's integers do not fit int16.  The delta wires
   are not ported (ROADMAP.md).
 - Iterating a `TrajReader` yields the System once per frame, holding
-  that frame's positions, box, step and time (JAX `io/traj.py:822-889`);
-  `read_frames` reads frames by number as one f32 batch (`:588`).
+  that frame's positions, velocities, forces, box, step, time and
+  precision (JAX `io/traj.py:822-891`); `read_frames` reads frames by
+  number as one f32 batch (`:588`).  `calc_rmsd` / `calc_rmsd_and_fit`
+  yield (System, RMSD) per frame, computed per batch on the System's
+  device (`RMSDTrajIterator`).
 - `print_progress` ticks a `ProgressPrinter` as batches are handed out:
   every frame counts (printed every `print_freq` frames), then COMPLETED,
   or FAILED when reading fails.  (The JAX runner attaches the printer but
   its batch path prints nothing.)
+- Writers (`make_writer`): XTC and TRR through the port's codec, GRO
+  trajectories and extended XYZ, each of a group snapshotted at
+  creation, byte-identical to the JAX writers.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import threading
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..errors import ReadTrajError
+from ..core.simbox import SimBox
+from ..errors import FileTypeError, ReadTrajError, WriteTrajError
 from ..files import FileType
 from ..progress import ProgressPrinter, ProgressStatus
 from . import native
 
-__all__ = ["TIME_PRECISION", "FrameBatch", "XtcSource", "TrrSource", "open_source",
-           "TrajReader", "traj_iter", "cat_iter"]
+__all__ = ["TIME_PRECISION", "FrameBatch", "XtcSource", "TrrSource", "GroSource",
+           "open_source", "TrajReader", "RMSDTrajIterator", "traj_iter", "xtc_iter",
+           "trr_iter", "gro_iter", "tng_iter", "cat_iter", "TrajWriter", "XtcWriter",
+           "TrrWriter", "GroTrajWriter", "TngTrajWriter", "XyzTrajWriter",
+           "make_writer"]
+
+_TNG_LATER = ("TNG trajectories are not ported to groan_rs_tpu_torch yet "
+              "(see ROADMAP.md)")
 
 TIME_PRECISION = 0.001  # reference: molly_xtc.rs:30
 
@@ -67,7 +85,12 @@ class FrameBatch:
     times: np.ndarray  # [B] float32
     frame_numbers: np.ndarray  # [B] frame indices in the iteration
     precisions: np.ndarray | None = None  # [B] float32
-    velocities: np.ndarray | None = None  # [B, K, 3] float32 (TRR)
+    velocities: np.ndarray | None = None  # [B, K, 3] float32 (TRR, GRO)
+    forces: np.ndarray | None = None  # [B, K, 3] float32 (TRR)
+    has_x: np.ndarray | None = None  # [B] bool (TRR frames may lack blocks)
+    has_v: np.ndarray | None = None
+    has_f: np.ndarray | None = None
+    vel_mask: np.ndarray | None = None  # [B, K] per-atom velocity presence (GRO)
     atom_indices: np.ndarray | None = None  # selection indices if partial
     wire: str = "f32"
 
@@ -131,7 +154,8 @@ class XtcSource:
 class TrrSource:
     """A TRR file with its scanned frame index.  Its batches are f32 and
     carry the velocities (zeros in a frame without a velocity block, as
-    in the JAX package); forces are not read."""
+    in the JAX package), and the forces when a frame of the batch has
+    them."""
 
     kind = "trr"
 
@@ -152,26 +176,151 @@ class TrrSource:
 
     def read_batch(self, frame_ids, stop_after=None, wire: str = "f32",
                    velocities: bool = True) -> FrameBatch:
-        x, v, _, boxes, steps, times, _, _ = native.trr_read_frames(
+        want_f = bool((self.flags[frame_ids] & 4).any())
+        x, v, f, boxes, steps, times, _, flags = native.trr_read_frames(
             self.path, self.offsets[frame_ids], self.natoms, want_v=velocities,
-            stop_after=stop_after)
+            want_f=want_f, stop_after=stop_after)
         return FrameBatch(
-            positions=x, velocities=v, boxes9=_xtc_box_to_gro9(boxes),
+            positions=x, velocities=v, forces=f, boxes9=_xtc_box_to_gro9(boxes),
             steps=steps.astype(np.int64), times=times.astype(np.float32),
-            frame_numbers=np.asarray(frame_ids, np.int64))
+            frame_numbers=np.asarray(frame_ids, np.int64),
+            has_x=(flags & 1) > 0, has_v=(flags & 2) > 0, has_f=(flags & 4) > 0)
+
+
+_TIME_STEP_RE = re.compile(r"t=\s*([\d\.\-]+)\s+step=\s*(\d+)")
+
+
+class GroSource:
+    """Multi-frame GRO trajectory (reference: gro_io/trajectory.rs:37).
+
+    Construction only scans the file (each frame's byte offset, and the
+    time and step of its title line); atom blocks are parsed per requested
+    batch, so a large multi-frame GRO file is never held whole."""
+
+    kind = "gro"
+
+    def __init__(self, path):
+        self.path = str(path)
+        offsets, times, steps = [], [], []
+        natoms = None
+        try:
+            fh = open(path, "rb")
+        except OSError:
+            raise ReadTrajError(f"file '{path}' was not found",
+                                code="FileNotFound") from None
+        with fh:
+            while True:
+                start = fh.tell()
+                title = fh.readline()
+                if not title:
+                    break
+                if not title.strip() and not fh.readline():
+                    break
+                if not title.strip():
+                    raise ReadTrajError(f"could not parse number of atoms in '{path}'",
+                                        code="FrameNotFound")
+                try:
+                    n = int(fh.readline().strip())
+                except ValueError:
+                    raise ReadTrajError(f"could not parse number of atoms in '{path}'",
+                                        code="FrameNotFound") from None
+                if natoms is None:
+                    natoms = n
+                elif natoms != n:
+                    raise ReadTrajError(f"inconsistent atom count in '{path}'",
+                                        code="AtomsNumberMismatch")
+                for _ in range(n + 1):  # atom lines + box line
+                    if not fh.readline():
+                        raise ReadTrajError(f"truncated frame in '{path}'",
+                                            code="FrameNotFound")
+                m = _TIME_STEP_RE.search(title.decode(errors="replace"))
+                if m:
+                    t, st = float(m.group(1)), int(m.group(2))
+                else:
+                    # a title without t=/step= keeps the previous frame's
+                    # values (reference: gro_io/trajectory.rs:210,340)
+                    t = times[-1] if times else 0.0
+                    st = steps[-1] if steps else 0
+                offsets.append(start)
+                times.append(t)
+                steps.append(st)
+        self.natoms = natoms or 0
+        self._offsets = np.asarray(offsets, np.int64)
+        self.times = np.asarray(times, np.float32)
+        self.steps = np.asarray(steps, np.int64)
+
+    def n_frames(self) -> int:
+        return self._offsets.shape[0]
+
+    def _parse_frame(self, fh, stop):
+        from ..utils.textcols import FixedWidthLines
+        from .gro import parse_atom_block, parse_box_line
+
+        fh.readline()  # title
+        n = int(fh.readline().strip())
+        # one bulk read of the atom block and the box line, parsed as a
+        # byte matrix (io/gro.py)
+        blob = b"".join(fh.readline() for _ in range(n + 1))
+        box_start = blob.rfind(b"\n", 0, len(blob) - 1) + 1
+        try:
+            fw = FixedWidthLines.from_bytes(blob[:box_start], n_lines=n)
+            _, _, _, _, pos, vel, has_vel = parse_atom_block(None, fw=fw)
+        except Exception as e:
+            raise ReadTrajError(f"could not parse frame in '{self.path}': {e}",
+                                code="FrameNotFound") from None
+        try:
+            box = parse_box_line(blob[box_start:].decode(errors="replace"))
+        except Exception as e:
+            raise ReadTrajError(f"invalid box in '{self.path}': {e}",
+                                code="InvalidBox") from None
+        box9 = np.array(list(iter(box)), np.float32)
+        return (pos[:stop], (vel[:stop] if vel is not None else None),
+                np.asarray(has_vel)[:stop], box9)
+
+    def read_batch(self, frame_ids, stop_after=None, wire: str = "f32",
+                   velocities: bool = True) -> FrameBatch:
+        stop = stop_after if stop_after is not None else self.natoms
+        ids = np.asarray(frame_ids)
+        b = len(ids)
+        pos = np.zeros((b, stop, 3), np.float32)
+        vel = np.zeros((b, stop, 3), np.float32)
+        has_v = np.zeros(b, bool)
+        vel_mask = np.zeros((b, stop), bool)
+        boxes = np.zeros((b, 9), np.float32)
+        with open(self.path, "rb") as fh:
+            for k, fid in enumerate(ids):
+                fh.seek(self._offsets[fid])
+                p, v, hv, box9 = self._parse_frame(fh, stop)
+                pos[k] = p
+                if v is not None:
+                    # per-atom presence: a frame may mix lines with and
+                    # without velocity columns
+                    vel[k] = v
+                    vel_mask[k] = hv
+                    has_v[k] = bool(hv.any())
+                boxes[k] = box9
+        return FrameBatch(
+            positions=pos, velocities=vel if velocities else None, boxes9=boxes,
+            steps=self.steps[ids], times=self.times[ids],
+            frame_numbers=ids.astype(np.int64), has_x=np.ones(b, bool),
+            has_v=has_v, has_f=np.zeros(b, bool), vel_mask=vel_mask)
 
 
 def open_source(path, fmt: str | None = None):
-    """The frame source of an XTC or TRR file (by extension unless `fmt`
-    names the format)."""
+    """The frame source of an XTC, TRR or GRO file (by extension unless
+    `fmt` names the format)."""
     if fmt is None:
         fmt = FileType.from_name(path).value
     if fmt == "xtc":
         return XtcSource(path)
     if fmt == "trr":
         return TrrSource(path)
-    raise ReadTrajError(f"unsupported trajectory format '{fmt}' ('{path}'; XTC "
-                        "and TRR are ported, other formats are not yet)",
+    if fmt == "gro":
+        return GroSource(path)
+    if fmt == "tng":
+        raise FileTypeError(f"cannot read '{path}': {_TNG_LATER}")
+    raise ReadTrajError(f"unsupported trajectory format '{fmt}' ('{path}'; XTC, "
+                        "TRR and GRO are ported, other formats are not yet)",
                         code="UnknownFormat")
 
 
@@ -183,10 +332,9 @@ def _concat(parts) -> FrameBatch:
         arrs = [getattr(p, name) for p in parts]
         return None if any(a is None for a in arrs) else np.concatenate(arrs)
 
-    return FrameBatch(positions=cat("positions"), boxes9=cat("boxes9"),
-                      steps=cat("steps"), times=cat("times"),
-                      frame_numbers=cat("frame_numbers"),
-                      precisions=cat("precisions"), velocities=cat("velocities"))
+    return FrameBatch(**{name: cat(name) for name in (
+        "positions", "boxes9", "steps", "times", "frame_numbers", "precisions",
+        "velocities", "forces", "has_x", "has_v", "has_f", "vel_mask")})
 
 
 class TrajReader:
@@ -226,6 +374,12 @@ class TrajReader:
             self._sel = sel
         if self._sel is not None:
             self._stop_after = int(self._sel[-1]) + 1 if len(self._sel) else 0
+        # a contiguous selection writes back into the System as a slice (a
+        # fancy scatter of a large group costs more than its decode)
+        self._sel_slice = None
+        if self._sel is not None and len(self._sel) and \
+                int(self._sel[-1]) - int(self._sel[0]) + 1 == len(self._sel):
+            self._sel_slice = slice(int(self._sel[0]), int(self._sel[-1]) + 1)
 
         # the frame table: (source, local frame, time, step) per frame;
         # equal times are dropped only at a file boundary
@@ -324,6 +478,16 @@ class TrajReader:
             self._gather_selection(out)
         return out
 
+    # ------------------------------------------------------------- analyzers
+    def calc_rmsd(self, reference, group: str) -> "RMSDTrajIterator":
+        """Per-frame RMSD vs a reference (reference: rmsd.rs:258)."""
+        return RMSDTrajIterator(self, reference, group, fit=False)
+
+    def calc_rmsd_and_fit(self, reference, group: str) -> "RMSDTrajIterator":
+        """Per-frame RMSD, every frame fitted onto the reference
+        (reference: rmsd.rs:286)."""
+        return RMSDTrajIterator(self, reference, group, fit=True)
+
     # ------------------------------------------------------------- frames
     def __iter__(self):
         """Per-frame iteration: each frame written into the System, which
@@ -331,7 +495,7 @@ class TrajReader:
         p = self.progress
         counter = 0
         try:
-            for batch in self.batches():
+            for batch in self._loader():
                 for k in range(len(batch)):
                     self._update_system(batch, k)
                     if p is not None:
@@ -349,28 +513,46 @@ class TrajReader:
 
     def _update_system(self, batch: FrameBatch, k: int) -> None:
         """Write frame k of a batch into the System (reference:
-        XtcFrameData::update_system, molly_xtc.rs:292-306): positions (of
-        the selection only, when there is one), velocities where the batch
-        carries them, box, step and time."""
-        from ..core.simbox import SimBox
-
+        XtcFrameData::update_system, molly_xtc.rs:292-306): positions,
+        velocities and forces (of the selection only, when there is one)
+        where the frame has them, box, step, time and precision."""
         s = self.system
         sel = batch.atom_indices
+        if sel is not None and self._sel_slice is not None:
+            sel = self._sel_slice  # contiguous selection: slice, not scatter
+        has_x = batch.has_x is None or bool(batch.has_x[k])
+        has_v = batch.velocities is not None and (batch.has_v is None
+                                                  or bool(batch.has_v[k]))
+        has_f = batch.forces is not None and (batch.has_f is None
+                                              or bool(batch.has_f[k]))
         at = slice(None) if sel is None else sel
-        s.positions[at] = batch.positions[k]
-        s.has_position[at] = True
-        if batch.velocities is not None:
+        if has_x:
+            s.positions[at] = batch.positions[k]
+        s.has_position[at] = has_x
+        if has_v:
             s.velocities[at] = batch.velocities[k]
-        s.has_velocity[at] = batch.velocities is not None
+            s.has_velocity[at] = (batch.vel_mask[k] if sel is None
+                                  and batch.vel_mask is not None else True)
+        else:
+            s.has_velocity[at] = False
+        if has_f and sel is None:
+            s.forces[:] = batch.forces[k]
+        s.has_force[at] = has_f and sel is None
         b9 = batch.boxes9[k]
         s.set_box(SimBox.from_gro_line(b9) if np.any(b9 != 0.0) else None)
         s.set_step(int(batch.steps[k]))
         s.set_time(float(batch.times[k]))
+        if batch.precisions is not None and batch.precisions[k] > 0:
+            s.set_precision(int(batch.precisions[k]))
 
     # ------------------------------------------------------------- batches
     def batches(self, wire: str = "f32"):
         """Iterate FrameBatches: bulk native decode, one batch decoded ahead
-        on a background thread."""
+        on a background thread; a `print_progress` printer ticks per frame."""
+        loader = self._loader(wire)
+        return loader if self.progress is None else self._ticked(loader)
+
+    def _loader(self, wire: str = "f32") -> "_PrefetchLoader":
         if wire not in ("f32", "q16", "auto"):
             raise ReadTrajError(f"unsupported wire format '{wire}' "
                                 "(f32, q16 or auto)", code="InvalidWire")
@@ -394,8 +576,7 @@ class TrajReader:
                 self._gather_selection(out)
             return out
 
-        loader = _PrefetchLoader(load, chunks)
-        return loader if self.progress is None else self._ticked(loader)
+        return _PrefetchLoader(load, chunks)
 
     def _read_part(self, src, ids, state) -> FrameBatch:
         """One source's frames: q16 where the state allows it (XTC only,
@@ -428,6 +609,8 @@ class TrajReader:
             out.positions = out.positions[:, ix, :]
             if out.velocities is not None:
                 out.velocities = out.velocities[:, ix, :]
+            if out.forces is not None:
+                out.forces = out.forces[:, ix, :]
         out.atom_indices = sel
 
     def _ticked(self, loader):
@@ -495,6 +678,89 @@ class _PrefetchLoader:
         return box["out"]
 
 
+class RMSDTrajIterator:
+    """Trajectory RMSD (reference: RMSDTrajRead, rmsd.rs:258), optionally
+    fitting every frame onto the reference (`calc_rmsd_and_fit`,
+    rmsd.rs:286).
+
+    Each batch of frames goes to the System's device once: the group's
+    refined COM of every frame (one K1 + K2 pair for the batch), QCP
+    Kabsch over the batch (`ops.rmsd.rmsd_frames`) and, when fitting,
+    `fit_transform` over all atoms `[B, N, 3]`; the fitted frames come
+    back to the host.  Frames are then handed out one by one as
+    (System, rmsd), the System holding the frame (fitted when fitting), as
+    the JAX iterator does."""
+
+    def __init__(self, reader: TrajReader, reference, group: str, fit: bool = False):
+        import torch
+
+        from ..errors import RMSDError
+        from ..ops import interactive
+        from ..system.rmsd import _extract, _masses
+
+        if reader._sel is not None:
+            raise RMSDError("trajectory RMSD requires full-frame reading",
+                            code="PartialRead")
+        self.reader = reader
+        self.fit = fit
+        ref_coords, ref_center, ref_idx, ref_com = _extract(reference, group)
+        w = _masses(reference, group, ref_idx)
+        system = reader.system
+        idx = system.group_indices(group)
+        if idx.shape[0] != ref_idx.shape[0]:
+            raise RMSDError(
+                f"group '{group}' atom count differs between reference and system",
+                code="InconsistentGroup")
+        dev = self.device = system.device
+        put = interactive.put
+        self._ref, self._ref_center = put(ref_coords, dev), put(ref_center, dev)
+        self._ref_group_com = put(ref_com, dev)
+        self._w = put(w, dev)
+        # the fit's COM weighs by the System's own masses (JAX `:1032-1036`)
+        w_fit = system.topology.mass[idx]
+        self._w_fit = None if np.array_equal(w_fit, w) else put(w_fit, dev)
+        contiguous = idx.shape[0] and int(idx[-1]) - int(idx[0]) + 1 == idx.shape[0]
+        self._slice = slice(int(idx[0]), int(idx[-1]) + 1) if contiguous else None
+        self._j = None if contiguous else torch.from_numpy(idx).to(dev)
+
+    def _batch(self, fb: FrameBatch):
+        """-> (rmsd [B], fitted frames [B, N, 3] or None) as numpy."""
+        import torch
+
+        from ..ops import center as center_ops
+        from ..ops import interactive
+        from ..ops import rmsd as rmsd_ops
+
+        pos = torch.from_numpy(fb.positions).to(self.device)
+        boxes = interactive.put(fb.box_lengths(), self.device)
+        g = pos[:, self._slice] if self._j is None else pos.index_select(1, self._j)
+        com = center_ops.center(g, boxes[:, None, :], weights=self._w)
+        rot, rms = rmsd_ops.rmsd_frames(self._ref, self._ref_center, g, boxes,
+                                        self._w, com=com)
+        if not self.fit:
+            return interactive.fetch(rms), None
+        com_fit = com if self._w_fit is None else center_ops.center(
+            g, boxes[:, None, :], weights=self._w_fit)
+        fitted = rmsd_ops.fit_transform(pos, boxes, com_fit, rot, self._ref_group_com)
+        return interactive.fetch(rms), interactive.fetch(fitted)
+
+    def __iter__(self):
+        reader = self.reader
+        system = reader.system
+        counter = 0
+        for batch in reader._loader():
+            rmss, fitted = self._batch(batch)
+            for k in range(len(batch)):
+                reader._update_system(batch, k)
+                if fitted is not None:
+                    system.box_lengths()  # the fit needs an orthogonal box
+                    system.positions[:] = fitted[k]
+                if reader.progress is not None:
+                    reader.progress.print(counter, system.get_step(), system.get_time())
+                counter += 1
+                yield system, float(rmss[k])
+
+
 def _with_options(reader: TrajReader, start_time=None, end_time=None,
                   step=None) -> TrajReader:
     if start_time is not None or end_time is not None:
@@ -528,3 +794,144 @@ def cat_iter(system, filenames, fmt: str | None = None, group: str | None = None
                         group=group, batch_size=batch_size, indices=indices,
                         velocities=velocities)
     return _with_options(reader, start_time, end_time, step)
+
+
+def xtc_iter(system, filename, **kw) -> TrajReader:
+    if FileType.from_name(filename) is not FileType.XTC:
+        raise ReadTrajError(f"'{filename}' is not an xtc file", code="NotXtc")
+    return traj_iter(system, filename, fmt="xtc", **kw)
+
+
+def trr_iter(system, filename, **kw) -> TrajReader:
+    if FileType.from_name(filename) is not FileType.TRR:
+        raise ReadTrajError(f"'{filename}' is not a trr file", code="NotTrr")
+    return traj_iter(system, filename, fmt="trr", **kw)
+
+
+def gro_iter(system, filename, **kw) -> TrajReader:
+    return traj_iter(system, filename, fmt="gro", **kw)
+
+
+def tng_iter(system, filename, **kw) -> TrajReader:
+    raise FileTypeError(f"cannot read '{filename}': {_TNG_LATER}")
+
+
+# =====================================================================
+# Trajectory writers
+# =====================================================================
+
+class TrajWriter:
+    """Base frame writer (reference: traj_write.rs:451 sealed trait): the
+    group's atoms are fixed when the writer is made, and an existing file
+    of that name is replaced."""
+
+    def __init__(self, system, path, group: str = "all"):
+        if not system.group_exists(group):
+            raise WriteTrajError(f"group '{group}' does not exist", code="GroupNotFound")
+        self.system = system
+        self.path = str(path)
+        self.group = group
+        self.indices = system.group_indices(group)
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+    def write_frame(self):
+        raise NotImplementedError
+
+    def close(self):
+        pass
+
+
+class XtcWriter(TrajWriter):
+    def write_frame(self):
+        s = self.system
+        box = s.get_box()
+        box33 = box.to_matrix() if box is not None else np.zeros((3, 3), np.float32)
+        native.xtc_write_frame(self.path, len(self.indices), s.get_step(), s.get_time(),
+                               box33.reshape(9), s.positions[self.indices],
+                               float(s.get_precision()))
+
+
+class TrrWriter(TrajWriter):
+    def write_frame(self):
+        s = self.system
+        box = s.get_box()
+        box33 = box.to_matrix().reshape(9) if box is not None else None
+        idx = self.indices
+        # the reference always writes x, v and f blocks, zeros for atoms
+        # that lack the vector (trr_io.rs:483-506)
+        x = np.where(s.has_position[idx, None], s.positions[idx], 0.0)
+        v = np.where(s.has_velocity[idx, None], s.velocities[idx], 0.0)
+        f = np.where(s.has_force[idx, None], s.forces[idx], 0.0)
+        native.trr_write_frame(self.path, len(idx), s.get_step(), s.get_time(),
+                               s.get_lambda(), box33, x=x, v=v, f=f)
+
+
+class GroTrajWriter(TrajWriter):
+    def __init__(self, system, path, group: str = "all",
+                 write_velocities: bool | None = None):
+        super().__init__(system, path, group)
+        # None: velocities per frame iff the whole system has them
+        # (reference: gro_io/trajectory.rs:545); a bool overrides
+        self.write_velocities = write_velocities
+
+    def write_frame(self):
+        from .gro import write_gro_frame
+
+        wv = (self.system.has_velocities() if self.write_velocities is None
+              else self.write_velocities)
+        with open(self.path, "a") as fh:
+            write_gro_frame(self.system, fh, self.group, wv, is_trajectory=True)
+
+
+class TngTrajWriter(TrajWriter):
+    """Not ported yet: raises `FileTypeError` (ROADMAP.md)."""
+
+    def __init__(self, system, path, group: str = "all", **kw):
+        raise FileTypeError(f"cannot write '{path}': {_TNG_LATER}")
+
+
+class XyzTrajWriter(TrajWriter):
+    """Extended-XYZ writer (the reference reads XYZ but cannot write it):
+    `Lattice=` when the System has a box, `Properties=` and `Time=`;
+    coordinates in Angstrom; species from the element symbols where
+    guessed, else the atom names."""
+
+    def __init__(self, system, path, group: str = "all"):
+        super().__init__(system, path, group)
+        topo = system.topology
+        sym = topo.element_symbol.values()[self.indices]
+        names = topo.atomname.values()[self.indices]
+        self._species = np.where(sym == "", names, sym)
+
+    def write_frame(self):
+        s = self.system
+        pos = np.asarray(s.positions[self.indices], np.float64) * 10.0
+        box = s.get_box()
+        comment = f"Properties=species:S:1:pos:R:3 Time={float(s.get_time()):g}"
+        if box is not None:
+            h = np.asarray(box.to_matrix(), np.float64) * 10.0
+            lat = " ".join(f"{v:.6f}" for v in h.reshape(9))
+            comment = f'Lattice="{lat}" ' + comment
+        lines = [str(len(self.indices)), comment]
+        lines.extend(f"{sp} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}"
+                     for sp, p in zip(self._species, pos))
+        with open(self.path, "a") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def make_writer(system, path, group: str = "all", fmt: str | None = None,
+                **kw) -> TrajWriter:
+    if fmt is None:
+        fmt = FileType.from_name(path).value
+    if fmt == "xtc":
+        return XtcWriter(system, path, group)
+    if fmt == "trr":
+        return TrrWriter(system, path, group)
+    if fmt == "gro":
+        return GroTrajWriter(system, path, group, **kw)
+    if fmt == "tng":
+        return TngTrajWriter(system, path, group, **kw)
+    if fmt == "xyz":
+        return XyzTrajWriter(system, path, group)
+    raise WriteTrajError(f"unsupported trajectory format '{fmt}'", code="UnknownFormat")

@@ -170,6 +170,19 @@ def _extract_reference_triclinic(reference, group: str, w: torch.Tensor):
         pos, torch.from_numpy(box.to_matrix()), weights=w.cpu())
 
 
+def _cpu_com(reference, group: str, box) -> np.ndarray:
+    """The group's refined COM by the K1 + K2 twins on CPU tensors, the
+    float32 arithmetic the reference preparation has always used, whatever
+    the reference System's device."""
+    idx = reference.group_indices(group)
+    if not reference.topology.has_mass[idx].all():
+        bad = int(idx[~reference.topology.has_mass[idx]][0])
+        raise GroupError(f"atom {bad} has no mass", code="InvalidMass")
+    return center_ops.center(torch.from_numpy(reference.positions[idx]),
+                             torch.from_numpy(box),
+                             weights=torch.from_numpy(reference.topology.mass[idx])).numpy()
+
+
 def _extract_reference(reference, group: str):
     """The RMSD reference group shifted so its COM sits at the box centre,
     then wrapped (`groan_rs_tpu/system/rmsd.py:18-40`, `_extract`), in the
@@ -182,7 +195,7 @@ def _extract_reference(reference, group: str):
         idx = reference.group_indices(group)
         if idx.shape[0] == 0:
             raise RMSDError(f"group '{group}' is empty", code="EmptyGroup")
-        com = reference.group_get_com(group)
+        com = _cpu_com(reference, group, box)
     except GroupError as e:
         code = {"NotFound": "NonexistentGroup"}.get(e.code, e.code)
         raise RMSDError(str(e), code=code) from e

@@ -1,8 +1,9 @@
 """Pair reductions between two selections: minimum distance, contacts,
 and the pair-distance histogram of the RDF.
 
-Port of `groan_rs_tpu/ops/distances.py:29-43`, `:127-144`, `:155-195`
-and `:198-251`.
+Port of `groan_rs_tpu/ops/distances.py:29-43`, `:104-195` and
+`:198-251` (`center_distance`, `pair_distances` and
+`distance_matrix_masked` serve the System's per-call methods).
 Large unmasked selections route to the tiled pair kernel (K3,
 `ops.kernels.pair_reduce`), which never materialises N x M; small or
 masked ones take the dense path (`distance_matrix`, the JAX package's own
@@ -32,9 +33,12 @@ import numpy as np
 import torch
 
 from . import kernels
-from .pbc import box_inverse, box_volume, min_image, min_image_norm2_frames
+from .center import center
+from .pbc import (_masked_norm, box_inverse, box_volume, distance, min_image,
+                  min_image_norm2_frames)
 
-__all__ = ["distance_matrix", "min_distance", "contact_count",
+__all__ = ["center_distance", "pair_distances", "distance_matrix",
+           "distance_matrix_masked", "min_distance", "contact_count",
            "min_distance_triclinic", "contact_count_triclinic",
            "pair_distance_histogram", "rdf_normalization"]
 
@@ -60,6 +64,22 @@ def _box_rows(box, like):
     return box
 
 
+def center_distance(pos_a, pos_b, box, dim_mask, mask_a=None, mask_b=None,
+                    weights_a=None, weights_b=None):
+    """Distance between the refined centres (K1 + K2) of two selections,
+    then a PBC distance along `dim_mask` (`System::group_distance`,
+    analysis.rs:348)."""
+    ca = center(pos_a, box, mask=mask_a, weights=weights_a)
+    cb = center(pos_b, box, mask=mask_b, weights=weights_b)
+    return distance(ca, cb, box, dim_mask)
+
+
+def pair_distances(a, b, box, dim_mask=(True, True, True)):
+    """Elementwise distances between matched points `[..., K, 3]` ->
+    `[..., K]`."""
+    return distance(a, b, box, dim_mask)
+
+
 def distance_matrix(a, b, box, dim_mask=(True, True, True)):
     """`[..., N, M]` PBC distance matrix (`group_all_distances`,
     analysis.rs:401); box `[..., 3]`.  One active axis gives oriented
@@ -69,14 +89,17 @@ def distance_matrix(a, b, box, dim_mask=(True, True, True)):
     box = torch.as_tensor(box, dtype=a.dtype, device=a.device)
     d = min_image(a[..., :, None, :] - b[..., None, :, :],
                   box[..., None, None, :])
-    n_active = sum(bool(v) for v in dim_mask)
-    if n_active == 0:
-        return torch.zeros(d.shape[:-1], dtype=a.dtype, device=a.device)
-    mask = torch.tensor([bool(v) for v in dim_mask], device=a.device)
-    d = torch.where(mask, d, torch.zeros((), dtype=a.dtype, device=a.device))
-    if n_active == 1:
-        return d.sum(-1)
-    return torch.sqrt((d * d).sum(-1))
+    return _masked_norm(d, dim_mask)
+
+
+def distance_matrix_masked(a, b, box, mask_a, mask_b, fill=float("nan"),
+                           dim_mask=(True, True, True)):
+    """Distance matrix with the pairs of invalid rows or columns set to
+    `fill` (padded selections)."""
+    m = distance_matrix(a, b, box, dim_mask)
+    valid = (torch.as_tensor(mask_a, device=m.device)[..., :, None]
+             & torch.as_tensor(mask_b, device=m.device)[..., None, :])
+    return torch.where(valid, m, torch.full((), fill, dtype=m.dtype, device=m.device))
 
 
 def contact_count(a, b, box, cutoff, mask_a=None, mask_b=None):

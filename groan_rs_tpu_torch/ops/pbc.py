@@ -31,7 +31,8 @@ import torch
 
 from .. import backend as _backend  # noqa: F401  (TF32 off before any product)
 
-__all__ = ["wrap", "min_image", "vector_to", "distance", "box_inverse",
+__all__ = ["wrap", "min_image", "vector_to", "displacement", "distance",
+           "distance_naive", "box_inverse",
            "box_volume", "min_image_triclinic", "distance_triclinic",
            "wrap_triclinic", "min_image_triclinic_frames",
            "min_image_frames_any", "min_image_norm2_frames", "norm2",
@@ -71,12 +72,15 @@ def vector_to(a, b, box):
     return d - box * torch.floor(d / box) - half
 
 
-def distance(a, b, box, dim_mask=(True, True, True)):
-    """PBC distance masked by dimensions (`Vector3D::distance`,
-    vector3d.rs:458): one active axis gives the ORIENTED per-axis minimum
-    image of `a - b`, two or three the Euclidean norm over them."""
+def displacement(a, b, box):
+    """Minimum-image displacement `a - b` per axis (oriented)."""
     a = torch.as_tensor(a)
-    d = min_image(a - torch.as_tensor(b), box)
+    return min_image(a - torch.as_tensor(b), box)
+
+
+def _masked_norm(d, dim_mask):
+    """One active axis: the oriented component; two or three: the
+    Euclidean norm over them; none: zeros."""
     n_active = sum(bool(v) for v in dim_mask)
     if n_active == 0:
         return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
@@ -85,6 +89,21 @@ def distance(a, b, box, dim_mask=(True, True, True)):
     if n_active == 1:
         return d.sum(-1)
     return torch.sqrt((d * d).sum(-1))
+
+
+def distance(a, b, box, dim_mask=(True, True, True)):
+    """PBC distance masked by dimensions (`Vector3D::distance`,
+    vector3d.rs:458): one active axis gives the ORIENTED per-axis minimum
+    image of `a - b`, two or three the Euclidean norm over them."""
+    return _masked_norm(displacement(a, b, box), dim_mask)
+
+
+def distance_naive(a, b, dim_mask=(True, True, True)):
+    """Distance ignoring PBC (`Vector3D::distance_naive`, vector3d.rs:500),
+    masked by dimensions as `distance`."""
+    a = torch.as_tensor(a)
+    return _masked_norm(a - torch.as_tensor(b, dtype=a.dtype, device=a.device),
+                        dim_mask)
 
 
 # ------------------------------------------------------- exact triclinic PBC

@@ -11,6 +11,8 @@ Port of `groan_rs_tpu/ops/rmsd.py:47-153` (reference `src/system/rmsd.rs`):
   RMSD = sqrt(sum w |R^T p_c - q_c|^2 / sum w) (rmsd.rs:547-604).
 - `rmsd_frames` — RMSD of a `[B, n, 3]` batch against a prepared
   reference.
+- `fit_transform` (`:258-274`) — apply a fit to every atom of a frame or
+  of a `[B, N, 3]` batch (rmsd.rs:508-533).
 - `prepare_coords_triclinic` / `rmsd_frames_triclinic` (`:210-255`) — the
   triclinic forms: every atom unwrapped around the triclinic refined COM
   by the exact minimum image (plain torch, no kernel), then the weighted
@@ -30,21 +32,24 @@ from .. import backend as _backend  # noqa: F401  (TF32 off before any product)
 from .center import center, center_triclinic
 from .pbc import min_image_triclinic, min_image_triclinic_frames, wrap
 
-__all__ = ["prepare_coords", "kabsch", "rmsd_frames",
+__all__ = ["prepare_coords", "kabsch", "rmsd_frames", "fit_transform",
            "prepare_coords_triclinic", "rmsd_frames_triclinic"]
 
 
-def prepare_coords(positions, box, mask=None, weights=None):
+def prepare_coords(positions, box, mask=None, weights=None, com=None):
     """Shift selected atoms so their COM is at the box centre, then wrap.
 
-    positions `[..., N, 3]`; box `(3,)` or `[B, 3]` (no atom axis).
-    Returns (shifted wrapped positions `[..., N, 3]`, box centre `[..., 3]`).
+    positions `[..., N, 3]`; box `(3,)` or `[B, 3]` (no atom axis); `com`
+    the selection's refined COM `[..., 3]` where the caller has it, else
+    it is computed here (K1 + K2).  Returns (shifted wrapped positions
+    `[..., N, 3]`, box centre `[..., 3]`).
     """
     positions = torch.as_tensor(positions)
     box = torch.as_tensor(box, dtype=positions.dtype, device=positions.device)
     box_center = torch.broadcast_to(box * 0.5, positions.shape[:-2] + (3,))
     box_b = box[..., None, :] if box.dim() > 1 else box
-    com = center(positions, box_b, mask=mask, weights=weights)
+    if com is None:
+        com = center(positions, box_b, mask=mask, weights=weights)
     shifted = positions + (box_center - com)[..., None, :]
     return wrap(shifted, box_b), box_center
 
@@ -101,17 +106,40 @@ def kabsch(p, q, w, centroid_p, centroid_q):
     return r, torch.broadcast_to(trans, rmsd.shape + (3,)), rmsd
 
 
-def rmsd_frames(ref_prepared, ref_center, frames, boxes, w, mask=None):
+def rmsd_frames(ref_prepared, ref_center, frames, boxes, w, mask=None, com=None):
     """RMSD of a `[B, n, 3]` frame batch vs a prepared reference.
 
     ref_prepared `[n, 3]` (from the reference's `prepare_coords`),
-    ref_center `[3]`, frames `[B, n, 3]`, boxes `[B, 3]`, w `[n]` masses.
+    ref_center `[3]`, frames `[B, n, 3]`, boxes `[B, 3]`, w `[n]` masses,
+    `com` the frames' group COMs `[B, 3]` where the caller has them.
     Returns (rotations `[B, 3, 3]`, rmsd `[B]`)."""
-    tgt, tgt_center = prepare_coords(frames, boxes, mask=mask, weights=w)
+    tgt, tgt_center = prepare_coords(frames, boxes, mask=mask, weights=w, com=com)
     w_eff = w if mask is None else torch.as_tensor(w) * torch.as_tensor(mask)
     r, _, rms = kabsch(ref_prepared[None, ...], tgt, w_eff,
                        ref_center[None, :], tgt_center)
     return r, rms
+
+
+def fit_transform(all_positions, box, group_com, rotation, ref_group_com):
+    """Apply an RMSD fit to every atom (reference: fit_structure,
+    rmsd.rs:508-533): translate by (box centre - group COM) and wrap,
+    translate by -box centre, rotate (`R @ x` per atom, i.e. x @ R^T for
+    row vectors), translate by the reference group's COM.
+
+    all_positions `[N, 3]` or `[B, N, 3]`; box `(3,)` or `[B, 3]`;
+    group_com `[3]` or `[B, 3]`; rotation `(3, 3)` or `[B, 3, 3]`;
+    ref_group_com `[3]`."""
+    p = torch.as_tensor(all_positions)
+    box = torch.as_tensor(box, dtype=p.dtype, device=p.device)
+    box_center = box * 0.5
+    shift = box_center - torch.as_tensor(group_com, dtype=p.dtype, device=p.device)
+    box_b = box[..., None, :] if box.dim() > 1 else box
+    moved = wrap(p + shift[..., None, :], box_b)
+    centered = moved - box_center[..., None, :]
+    r = torch.as_tensor(rotation, dtype=p.dtype, device=p.device)
+    rotated = torch.einsum("...ni,...ji->...nj", centered, r)
+    ref = torch.as_tensor(ref_group_com, dtype=p.dtype, device=p.device)
+    return rotated + ref[..., None, :]
 
 
 def _weights(w, mask, like):

@@ -53,7 +53,10 @@ import torch
 from ..backend import as_device
 from ..errors import ParallelError
 
-__all__ = ["DeviceTrajectory", "FrameEngine"]
+__all__ = ["DeviceTrajectory", "FrameEngine", "traj_iter_map_reduce"]
+
+_LATER_MESH = ("not ported to groan_rs_tpu_torch yet: the port runs one "
+               "device (multi-device is ROADMAP.md section 1, item 11)")
 
 
 class DeviceTrajectory:
@@ -191,12 +194,20 @@ class FrameEngine:
             s.copied.synchronize()  # its last H2D copy has left the pinned buffer
         return s
 
-    def run(self, batches, on_batch=None):
+    def run(self, batches, on_batch=None, fold=None, init=None, collect=True,
+            on_carry=None):
         """Run the step over FrameBatches -> dict of `[F, ...]` numpy
         arrays, concatenated over the trajectory (padded frames dropped).
         `on_batch(frame_batch)` is called with each host FrameBatch once
         its step is dispatched (JAX `engine.py:410-489`): the hydrogen-bond
-        cell scorer's host work there overlaps the step on the device."""
+        cell scorer's host work there overlaps the step on the device.
+
+        `fold(carry, step_out, frame_mask) -> carry` keeps a reduction on
+        the device across batches, starting from `init` (the
+        `ParallelTrajData::reduce` analogue, parallel.rs:31-49); the pass
+        then returns (the collected dict, or None without `collect`, and
+        the final carry).  `on_carry(frame_batch, carry)` sees the carry
+        after each batch (checkpoints)."""
         cuda = self.device.type == "cuda"
         compute = torch.cuda.current_stream(self.device) if cuda else None
         copy = torch.cuda.Stream(self.device) if cuda else None
@@ -206,6 +217,7 @@ class FrameEngine:
         self.last_stage_seconds = clocks
         slots = [None, None]
         outs, trims = [], []
+        carry = init
         b_pad = None
         _pc = time.perf_counter
         it = iter(batches)
@@ -233,9 +245,11 @@ class FrameEngine:
             clocks["stage"].append(_pc() - t0)
             t0 = _pc()
             try:
-                res = self._step(kind, slot.dev["pos"], slot.dev["boxes"],
-                                 self._mask(b_pad, b), slot.dev.get("inv"),
-                                 *(slot.dev[a] for a in self.aux))
+                mask = self._mask(b_pad, b)
+                res = self._step(kind, slot.dev["pos"], slot.dev["boxes"], mask,
+                                 slot.dev.get("inv"), *(slot.dev[a] for a in self.aux))
+                if fold is not None:
+                    carry = fold(carry, res, mask)
             except Exception as e:
                 raise ParallelError(
                     f"analysis step failed on frames {int(fb.frame_numbers[0])}"
@@ -248,15 +262,20 @@ class FrameEngine:
                 t0 = _pc()
                 on_batch(fb)
                 clocks["on_batch"].append(_pc() - t0)
-            outs.append(res)
-            trims.append(b)
+            if on_carry is not None:
+                on_carry(fb, carry)
+            if collect:
+                outs.append(res)
+                trims.append(b)
             i += 1
-        if not outs:
-            return {}
-        t0 = _pc()
-        out = self._fetch_packed(outs, trims)
-        self.last_fetch_seconds = _pc() - t0
-        return out
+        out = {}
+        if outs:
+            t0 = _pc()
+            out = self._fetch_packed(outs, trims)
+            self.last_fetch_seconds = _pc() - t0
+        if fold is None:
+            return out if collect else None
+        return (out if collect else None), carry
 
     # ------------------------------------------------------------ resident
     def materialize(self, batches) -> DeviceTrajectory:
@@ -394,3 +413,114 @@ class FrameEngine:
                 results[i][k] = host[off:off + v.numel()].reshape(tuple(v.shape))
                 off += v.numel()
         return [{k: r[k] for k in cat} for r, cat in zip(results, cats)]
+
+
+def traj_iter_map_reduce(system, filenames, body, *, init=None, fold=None,
+                         reduce=None, group: str | None = None,
+                         fmt: str | None = None, batch_size: int = 64,
+                         start_time=None, end_time=None, step=None,
+                         progress=None, mesh=None, collect=None,
+                         progress_shards: int | None = None, checkpoint=None):
+    """`System::traj_iter_map_reduce` (reference: parallel.rs:208) on the
+    System's device (JAX `parallel/engine.py:1067-1194`).
+
+    - `body(positions [B, K, 3], boxes [B, 3], mask [B]) -> dict` of
+      `[B, ...]` tensors: the per-batch step (the thread body).
+    - `init` + `fold(carry, step_out, mask) -> carry`: an optional
+      reduction across batches kept on the device (the
+      `ParallelTrajData::{initialize,reduce}` protocol, parallel.rs:31-49);
+      the per-frame outputs are then fetched only with `collect=True`.
+    - `reduce(x) -> result`: host finalisation of the carry (with `fold`)
+      or of the concatenated per-frame outputs.
+    - `progress`: a ProgressPrinter, printing the reference's
+      master-thread lines: a jump line, every frame of the one shard,
+      COMPLETED at its last frame, then a final COMPLETED with the last
+      (step, time) (parallel.rs:287-296).
+    - An error in any batch aborts the pass: progress turns FAILED and a
+      ParallelError naming the frame range is raised (parallel.rs:28,230).
+    - `checkpoint` (a path; needs `fold`): the frame cursor and the carry
+      are saved after every batch, and a pass that finds a checkpoint
+      resumes after its last completed batch.
+    - `mesh` and `progress_shards` other than 1 raise: one device only.
+    """
+    from ..io.index_cache import PassState
+    from ..io.traj import cat_iter, traj_iter
+    from ..progress import ProgressStatus
+    from ..utils.tree import tree_flatten, tree_unflatten
+
+    if mesh is not None or progress_shards not in (None, 1):
+        raise ParallelError(f"meshes and progress_shards > 1 are {_LATER_MESH}")
+    opts = dict(fmt=fmt, group=group, batch_size=batch_size,
+                start_time=start_time, end_time=end_time, step=step)
+    if isinstance(filenames, (list, tuple)):
+        reader = cat_iter(system, filenames, **opts)
+    else:
+        reader = traj_iter(system, filenames, **opts)
+    engine = FrameEngine(body, system.device)
+
+    on_batch = None
+    if progress is not None:
+        times, steps_arr = reader.times, reader.steps
+        state = {"printed": 0, "done": 0}
+        progress.print_jumping()
+
+        def on_batch(fb):
+            state["done"] += len(fb)
+            lo = state["printed"]
+            while lo < times.shape[0] and lo < state["done"]:
+                progress.print(lo, int(steps_arr[lo]), float(times[lo]))
+                lo += 1
+            state["printed"] = lo
+
+    collect_flag = (fold is None) if collect is None else collect
+
+    on_carry = None
+    if checkpoint is not None:
+        if fold is None:
+            raise ParallelError("checkpoint requires a fold reduction")
+        ckpt = PassState.load(checkpoint, like=init) or PassState(0, init)
+        if ckpt.cursor > 0:
+            # the saved carry, as tensors of the init leaves' dtypes
+            like, spec = tree_flatten(init)
+            init = tree_unflatten(spec, [
+                torch.as_tensor(v, dtype=getattr(x, "dtype", None), device=engine.device)
+                for v, x in zip(tree_flatten(ckpt.carry)[0], like)])
+            mask = reader._mask.copy()
+            mask[reader.selected_frames()[:ckpt.cursor]] = False
+            reader._mask = mask
+        done = {"n": ckpt.cursor}
+
+        def on_carry(fb, carry):
+            done["n"] += len(fb)
+            ckpt.update(done["n"], carry)
+            ckpt.save(checkpoint)
+
+    try:
+        out = engine.run(reader.batches(), on_batch=on_batch, fold=fold, init=init,
+                         collect=collect_flag, on_carry=on_carry)
+    except Exception:
+        if progress is not None:
+            progress.set_status(ProgressStatus.FAILED)
+            progress.print(0, system.get_step(), system.get_time())
+        raise
+
+    if progress is not None:
+        progress.set_status(ProgressStatus.COMPLETED)
+        if state["printed"] > 0:
+            # the shard's own completion line ends without the newline
+            # (reference: parallel.rs:411, newline_at_end=false)
+            saved = progress.newline_at_end
+            progress.newline_at_end = False
+            g = state["printed"] - 1
+            progress.print(0, int(steps_arr[g]), float(times[g]))
+            progress.newline_at_end = saved
+        if times.shape[0] > 0:
+            progress.print(0, int(steps_arr[-1]), float(times[-1]))
+
+    if fold is not None:
+        collected, carry = out
+        result = reduce(carry) if reduce is not None else carry
+        return (result, collected) if collect_flag else result
+    if reduce is not None:
+        return reduce(out)
+    return out

@@ -2,8 +2,8 @@
 
 Port of `groan_rs_tpu/system/core.py` (`name_is_valid` :33, `Group`
 :43-132, `_add_group` :281-290) and `system/groups.py` (`group_create`
-:16 ... `group_names_writable` :165).  Group-by-geometry waits
-(ROADMAP.md).
+:16 ... `group_names_writable` :165).  Group-by-geometry evaluates the
+shapes' `inside` on the System's device.
 """
 
 from __future__ import annotations
@@ -44,6 +44,9 @@ class Group:
 
     def get_n_atoms(self) -> int:
         return self.atoms.get_n_atoms()
+
+    def copy(self) -> "Group":
+        return Group(AtomContainer(self.atoms.blocks.copy()), self.print_ndx)
 
 
 def _query_mask(system, query: str) -> np.ndarray:
@@ -99,6 +102,28 @@ class GroupsMixin:
 
         _check_name(name)
         self._add_group(name, Group(AtomContainer.from_mask(evaluate_mask(select, self))))
+
+    def group_create_from_geometry(self, name: str, query: str, geometry) -> None:
+        """reference: groups.rs:94 — query AND inside(shape)."""
+        self.group_create_from_geometries(name, query, [geometry])
+
+    def group_create_from_geometries(self, name: str, query: str, geometries) -> None:
+        """reference: groups.rs:164; atoms without a position are never
+        selected."""
+        from ..ops import interactive
+
+        _check_name(name)
+        if not self.has_box():
+            raise GroupError("system has no simulation box", code="InvalidSimBox")
+        if not self.simbox.is_orthogonal():
+            raise GroupError("simulation box is not orthogonal", code="InvalidSimBox")
+        mask = _query_mask(self, query) & self.has_position
+        dev = self.device
+        pts = interactive.put(self.positions, dev)
+        box = interactive.put(self.simbox.to_lengths_vec(), dev)
+        for geom in geometries:
+            mask &= interactive.fetch(geom.inside(pts, box))
+        self._add_group(name, Group(AtomContainer.from_mask(mask)))
 
     def group_create_from_indices(self, name: str, indices) -> None:
         """reference: groups.rs:215 — invalid indices are dropped silently."""

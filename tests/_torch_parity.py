@@ -89,3 +89,22 @@ def t(x):
 def n(x):
     """tensor / jax array -> numpy."""
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def synthetic_pair(path, n_atoms: int = 3000, n_frames: int = 12,
+                   groups=("Protein", "Membrane", "Peptide", "Water")):
+    """(XTC path, JAX System, port System on the CPU) of the synthetic
+    layout with the full topology (charges, bonds, elements, names) at
+    frame 0 of a trajectory written to `path`; the port System carries the
+    JAX one's residue numbers too."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch.io import native
+
+    testing.build_trajectory(str(path), n_atoms, n_frames)
+    offs, _, _, nat = native.xtc_scan(str(path))
+    c0, b9, *_ = native.xtc_read_frames(str(path), offs[:1], nat)
+    jsys = jax_system(testing.synthetic_state(c0[0], b9[0][[0, 4, 8]], topology="full"))
+    tsys = convert.system_from_state(state_from_jax_system(jsys, groups), device="cpu")
+    tsys.topology.resnum = jsys.topology.resnum.copy()
+    tsys.topology.atomnum = jsys.topology.atomnum.copy()
+    return str(path), jsys, tsys

@@ -5,7 +5,7 @@ names (`testing.named_layout`) in a 3 nm and a 21 nm box.
 - `CellGrid`: grid shape, cell widths, the CSR (sorted atoms, offsets),
   `cell_of`, `neighbors` with default and wide ranges, the half-shell
   `neighbor_cell_pairs`, atoms on the box edges, and every
-  `CellGridError` code; `neighbors_iter` refuses (not ported yet).
+  `CellGridError` code; `neighbors_iter` yields JAX's atoms.
 - `guess_bonds`: the same bond set and the same `GuessWarning` text after
   `guess_elements`, with the default and another radius factor; a system
   without vdw radii raises `BondGuessError`.
@@ -112,8 +112,10 @@ def test_cellgrid_edges_and_groups():
     jg, tg = JCellGrid(js, "Some", 0.5), TCellGrid(ts, "Some", 0.5)
     assert np.array_equal(tg.sorted_atoms, jg.sorted_atoms)
     assert np.array_equal(tg.neighbors([1.0, 1.0, 1.0]), jg.neighbors([1.0, 1.0, 1.0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.neighbors_iter([1.0, 1.0, 1.0])
+    got = tg.neighbors_iter([1.0, 1.0, 1.0], x_range=(-2, 2))
+    want = jg.neighbors_iter([1.0, 1.0, 1.0], x_range=(-2, 2))
+    assert np.array_equal(got.indices, want.indices)
+    assert [a.get_index() for a in got] == [a.get_index() for a in want]
 
 
 @pytest.mark.parametrize("case", ["InvalidSimBox", "InvalidCellSize", "GroupError",
