@@ -111,6 +111,41 @@ Phases, each of which raises on failure (the run then exits non-zero):
    on the device) equal to the runner within 1e-6, and a checkpointed pass
    stopped after two batches resuming to the same carry.  K1, K2 and K3
    launch exactly as predicted; their launches join the kernels' line.
+13. The conformational analyses (`models/structure.py`) and the frame
+   converters, 1M atoms, on phase 10's System at frame 0 over phase 4's
+   frames, each analysis loading only its group: `rmsf` (from the file,
+   and `fit=False`), `rotmat`, `rmsd_matrix` and `cluster` (gromos,
+   linkage, Jarvis-Patrick) on the 99,000-atom Protein; `morph` from
+   frame 0 to the last (30 frames, XTC); `dssp` 3-state over 48 frames and
+   8-state over 12 of all 9,900 residues; `ramachandran`; `pca`,
+   `entropy`, `dccm`, the two halves' `subspace_overlap`,
+   `cosine_content` and `mode_traj` (XTC) on the C-alphas of residues
+   1-1,000; `rmsdist` of all 9,900 C-alphas; `mdmat` of residues 1-1,000;
+   `clustsize` of the first 2,000 waters (molecules by the layout's own
+   bonds: phase 11's guessed bonds join the random synthetic waters into
+   molecules of thousands of atoms);
+   `convert_iter` with `FitConverter` + `WrapConverter` over 12 frames
+   written as XTC.  Checks against float64 host oracles
+   (`testing.host_prepared` / `host_kabsch` and the others): RMSF,
+   rotations and fitted RMSD within 1e-4 (atoms within 1e-5 nm of the wrap
+   boundary, or their frames, excused), RMSD equal to `add_rmsd` within
+   1e-5, RMSD matrix rows 0 and 47 within 1e-4, symmetric with a zero
+   diagonal within 1e-5, cluster labels equal `testing.host_clusters`,
+   PCA eigenvalues and the DCCM covariance within 1e-3 of the largest,
+   the entropies equal to their formulas over the card's eigenvalues and,
+   over the 47 modes the frames determine, within relative 1e-3 of
+   float64 (the null modes' float32 noise is printed); on 2 frames the
+   card's hydrogen bonds of a 2,000-residue band equal float64's and the
+   band's 3- and 8-state codes equal `testing.host_dssp_codes` (residues
+   within float32 reach of a half-box image tie excused), dihedrals
+   within 2e-2 degrees (sites with a bond at a half-box tie excused),
+   mdmat rows within 1e-5 nm, clustsize clusters between those of the
+   cutoff -+ 1e-5 nm; rmsdist 0 at the reference frame; written XTCs back
+   within half of 1/precision and two float32 ulps.  `dssp` of 20 ideal
+   helices and 20 hairpins (2,000 residues) reads H and E.  K1 and K2
+   launch as predicted (K3 never); `rmsf` and `rmsd_matrix` on 4 frames
+   equal between the kernel path and the twin path (CPU tensors) within
+   1e-4.  Its launches join the kernels' line.
 
 Phase 7 also prints the worst of the 1M-atom dihedral sites: its error,
 central bond, bend angles, lever arm, whether it crosses the box, and
@@ -1925,6 +1960,482 @@ def system_api_phase(torch, xtc, offs, nat, box, system, dev):
     return counts
 
 
+PCA_RESIDUES = 1000     # C-alpha atoms of the PCA, entropy and DCCM group
+MDMAT_RESIDUES = 1000   # residues of mdmat (10 atoms each)
+MDMAT_BAND = 250        # rows of the mdmat matrix the float64 oracle computes
+DSSP8_FRAMES = 12       # frames of the 8-state DSSP run
+DSSP_BAND = 2000        # residues whose energies the float64 oracle computes
+CLUST_WATERS = 2000     # water molecules of clustsize
+MODE_FRAMES = 30        # frames of morph and mode_traj
+IDEAL_PIECES = 20       # helices of 50 residues and hairpins of 2 x 25
+
+
+def _window(dt, a, b):
+    """Frames [a, b) of a DeviceTrajectory as one (views, same layout)."""
+    from groan_rs_tpu_torch.parallel import DeviceTrajectory
+
+    w = DeviceTrajectory(dt.pos[a:b], dt.boxes[a:b], dt.inv_prec[a:b], dt.times[a:b],
+                         dt.steps[a:b], dt.kind, dt.box_form)
+    w.sel, w.sel_known = dt.sel, dt.sel_known
+    return w
+
+
+def _read_back(system, group, path, want, what):
+    """The group's frames of an XTC written by the port, read back with the
+    port's reader, within half of 1/precision of what was written, plus the
+    float32 rounding of the scaled and of the decoded coordinate (an ulp
+    each, of the largest coordinate)."""
+    part = system.group_extract(group)
+    back = [s.positions.copy() for s in part.xtc_iter(path)]
+    gap = max(float(np.abs(b - a).max()) for a, b in zip(want, back))
+    prec = system.get_precision()
+    tol = 0.5 / prec + 2 * float(np.spacing(np.float32(max(np.abs(a).max() for a in want))))
+    check(len(back) == len(want) and gap <= tol,
+          f"{what}: {len(back)} frames of {back[0].shape[0]} atoms read back within half "
+          f"of 1/precision and two ulps ({gap:.3e} <= {tol:.3e})")
+    os.unlink(path)
+
+
+def _fit_oracle_checks(ref0, coords, boxes, w, rmsf, rot, want_rmsd, mat):
+    """rmsf, rotmat and rows 0 and F-1 of the RMSD matrix against the
+    float64 `calc_rmsd_and_fit` (`testing.host_prepared` / `host_kabsch`).
+    A frame whose shifted group puts an atom within 1e-5 nm of the wrap
+    boundary may wrap that atom a box length away in float32: such atoms
+    are excused from the RMSF, such frames from the RMSD (counted)."""
+    from groan_rs_tpu_torch import testing
+
+    f = coords.shape[0]
+    pc, ref_com, _ = testing.host_prepared(ref0, boxes[0], w)
+    qs, edges, r64, rot64, fitted = [], [], [], [], []
+    for k in range(f):
+        qc, _, edge = testing.host_prepared(coords[k], boxes[k], w)
+        r, rr = testing.host_kabsch(pc, qc, w)
+        qs.append(qc)
+        edges.append(edge)
+        r64.append(r)
+        rot64.append(rr)
+        fitted.append(qc @ rr + ref_com)
+    edges = np.asarray(edges)
+    fitted = np.asarray(fitted)
+    rmsf64 = np.sqrt(((fitted - fitted.mean(0)) ** 2).sum(-1).mean(0))
+    amb_atom = (edges < 1e-5).any(0)
+    amb_frame = (edges < 1e-5).any(1)
+    e = float(np.abs(rmsf - rmsf64)[~amb_atom].max())
+    check(e <= 1e-4, f"rmsf vs float64 fit over {f} frames within 1e-4 nm (max err {e:.2e}; "
+          f"{int(amb_atom.sum())} atoms within 1e-5 nm of the wrap boundary excused)")
+    ok = ~amb_frame
+    e = float(np.abs(rot["rmsd"][ok] - np.asarray(r64)[ok]).max())
+    e_rot = float(np.abs(rot["matrices"][ok] - np.swapaxes(np.asarray(rot64), 1, 2)[ok]).max())
+    check(e <= 1e-4 and e_rot <= 1e-4,
+          f"rotmat vs float64 Kabsch within 1e-4: RMSD max err {e:.2e} nm, rotation max "
+          f"err {e_rot:.2e} ({int(amb_frame.sum())} frames excused)")
+    e = float(np.abs(rot["rmsd"] - want_rmsd).max())
+    check(e <= 1e-5, f"rotmat's RMSD equals add_rmsd's within 1e-5 (max diff {e:.1e})")
+    errs, skipped = [], 0
+    for i in (0, f - 1):
+        for j in range(f):
+            if amb_frame[i] or amb_frame[j]:
+                skipped += 1
+                continue
+            errs.append(abs(float(mat[i, j]) - testing.host_kabsch(qs[i], qs[j], w)[0]))
+    check(max(errs) <= 1e-4, f"rmsd_matrix rows 0 and {f - 1} vs the float64 pair oracle "
+          f"within 1e-4 nm (max err {max(errs):.2e}; {skipped} pairs excused)")
+    asym = float(np.abs(mat - mat.T).max())
+    diag = float(np.abs(np.diag(mat)).max())
+    check(asym <= 1e-5 and diag <= 1e-5,
+          f"rmsd_matrix symmetric ({asym:.1e}) with a zero diagonal ({diag:.1e}), within 1e-5")
+    return amb_frame
+
+
+def _dssp_oracle_checks(torch, coords, boxes, names, resnames, ss3, ss8, dev):
+    """DSSP codes of frames 0 and 1 against float64 energies, on a band of
+    `DSSP_BAND` residues: the float64 energies of the band's residues (8
+    more on each side) as donors and as acceptors; the card's float32
+    hydrogen bonds equal those there (away from 1e-4 kcal/mol of the
+    cutoff, and from donors whose amide H float32 may place by another
+    image: N-C or N-O of the previous residue within 1e-5 nm of half a
+    box), and the band's 3- and 8-state codes equal
+    `testing.host_dssp_codes` of the float64 bonds, except residues within
+    6 of such a bond and, for the bends, residues whose CA(i-2)-CA(i) or
+    CA(i)-CA(i+2) lies within 1e-5 nm of half a box (counted)."""
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch.ops import dssp as DS
+
+    n_res = len(resnames)
+    at = {nm: np.flatnonzero(names == nm) for nm in ("N", "CA", "C", "O")}
+    check(all(len(v) == n_res for v in at.values()), "one N, CA, C and O per residue")
+    donor_ok = np.asarray([rn != "PRO" for rn in resnames])
+    donor_ok[0] = False
+    consec = np.ones(n_res, bool)
+    consec[-1] = False
+    band = min(DSSP_BAND, n_res)
+    lo = (n_res - band) // 2
+    hi = lo + band
+    wide = np.arange(max(0, lo - 8), min(n_res, hi + 8))
+
+    def half_box(a, b, box):
+        """Pairs whose float64 displacement lies within 1e-5 nm of half a box
+        on an axis: float32 may take the other image (a bend, an amide H)."""
+        d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+        return (np.abs(np.abs(d) - box / 2) < 1e-5).any(-1)
+
+    t0 = time.perf_counter()
+    for f in range(2):
+        bb = {nm: coords[f][at[nm]] for nm in at}
+        # donors whose amide H, and residues whose bend, float32 may place
+        # by another image than float64
+        tie_h = np.zeros(n_res, bool)
+        tie_h[1:] = half_box(bb["N"][1:], bb["C"][:-1], boxes[f]) \
+            | half_box(bb["N"][1:], bb["O"][:-1], boxes[f])
+        tie_ca = half_box(bb["CA"][2:], bb["CA"][:-2], boxes[f])
+        tie_s = np.zeros(n_res, bool)
+        tie_s[2:n_res - 2] = tie_ca[:-2] | tie_ca[2:]
+        e32 = DS.hbond_energy(*(torch.as_tensor(bb[nm][None], device=dev) for nm in at),
+                              torch.as_tensor(boxes[f:f + 1], device=dev), donor_ok)[0]
+        w_t = torch.as_tensor(wide, device=dev)
+        hb_rows = (e32.index_select(0, w_t) < DS.KS_CUTOFF).cpu().numpy()
+        hb_cols = (e32.index_select(1, w_t) < DS.KS_CUTOFF).cpu().numpy()
+        del e32
+        e_rows = testing.host_dssp_energy(*(bb[nm] for nm in at), boxes[f], donor_ok, rows=wide)
+        e_cols = testing.host_dssp_energy(*(bb[nm] for nm in at), boxes[f], donor_ok, cols=wide)
+        amb_r = (np.abs(e_rows - DS.KS_CUTOFF) < 1e-4) | tie_h[wide][:, None]
+        amb_c = (np.abs(e_cols - DS.KS_CUTOFF) < 1e-4) | tie_h[:, None]
+        same = ((hb_rows == (e_rows < DS.KS_CUTOFF)) | amb_r).all() and \
+            ((hb_cols == (e_cols < DS.KS_CUTOFF)) | amb_c).all()
+        n_hb = int((e_rows < DS.KS_CUTOFF).sum() + (e_cols < DS.KS_CUTOFF).sum())
+        check(same, f"frame {f}: the card's hydrogen bonds of residues {wide[0]}..{wide[-1]} "
+              f"(donors and acceptors) equal float64's ({n_hb} bonds; "
+              f"{int(amb_r.sum() + amb_c.sum())} energies within 1e-4 of the cutoff or of a donor "
+              "at a half-box tie excused)")
+        hb = np.zeros((n_res, n_res), bool)
+        hb[wide] = e_rows < DS.KS_CUTOFF
+        hb[:, wide] = e_cols < DS.KS_CUTOFF
+        excused = np.zeros(n_res, bool)
+        for j, i in list(zip(wide[np.nonzero(amb_r)[0]], np.nonzero(amb_r)[1])) + \
+                list(zip(np.nonzero(amb_c)[0], wide[np.nonzero(amb_c)[1]])):
+            for k in (i, j):
+                excused[max(0, k - 6):k + 7] = True
+        for states, got in ((3, ss3[f]), (8, ss8[f])):
+            want = testing.host_dssp_codes(hb, consec, states, coords[f][at["CA"]], boxes[f],
+                                           residues=(lo, hi))
+            got = got[lo:hi]
+            skip = (excused | (tie_s if states == 8 else False))[lo:hi]
+            bad = (want != got) & ~skip
+            check(not bad.any(), f"frame {f}: {states}-state codes of residues {lo}..{hi - 1} "
+                  f"equal the host oracle's ({int(skip.sum())} excused, {int((want != got).sum())} "
+                  f"differ; " + ", ".join(f"{c} {int((got == c).sum())}" for c in np.unique(got))
+                  + f"{'' if not bad.any() else '; first ' + str(lo + np.flatnonzero(bad)[:10])})")
+    say(f"  DSSP oracle (host float64, 2 frames): {time.perf_counter() - t0:.1f} s")
+
+
+def structure_phase(torch, xtc, offs, nat, box, system, dev):
+    """Phase 13: the conformational analyses of `models/structure.py` and
+    the frame converters on phase 10's System -> the K1/K2/K3 launches of
+    its main path."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    say(f"phase 13: conformational analyses, {nat} atoms x {N_FRAMES} frames")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    lay = testing.synthetic_layout(nat)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    n_res = n_prot // testing.RESIDUE_SIZE
+    n_pca, n_md = min(PCA_RESIDUES, n_res), min(MDMAT_RESIDUES, n_res)
+    n_wat = min(CLUST_WATERS, (nat - w0) // 3)
+    _, _, times, _ = native.xtc_scan(xtc)
+    next(iter(system.xtc_iter(xtc, end_time=float(times[0]))))   # frame 0: the reference
+    queries = {"CApca": f"Protein and name CA and resid 1 to {n_pca}",
+               "CAall": "Protein and name CA",
+               "Resmd": f"Protein and resid 1 to {n_md}",
+               "Waters": f"Water and serial {w0 + 1} to {w0 + 3 * n_wat}"}
+    for g, q in queries.items():
+        system.group_create(g, q)
+    sizes = {g: system.group_get_n_atoms(g) for g in queries}
+    check(sizes == {"CApca": n_pca, "CAall": n_res, "Resmd": 10 * n_md, "Waters": 3 * n_wat},
+          f"GSL groups {sizes}")
+    ref = system.copy()                  # frame 0, before the converters move it
+    # phase 11's guessed bonds join the synthetic waters (random O-H-H
+    # triplets at ~22 a nm^3) into molecules of thousands of atoms, whose
+    # padded [R, P, P, 3] tiles would not fit the card: clustsize takes the
+    # layout's own bonds, one molecule per water
+    layout_bonds = system.copy()
+    layout_bonds.topology.set_bonds_from_pairs(
+        np.concatenate([lay["lipid_bonds"], lay["water_bonds"]]))
+    w = system.topology.mass[:n_prot]
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    paths = {k: os.path.join(K.BUILD_DIR, f"smoke_{k}.xtc") for k in ("morph", "modes", "fit")}
+    half = N_FRAMES // 2
+    n_conv = min(BATCH, N_FRAMES)
+    last = native.xtc_read_frames(xtc, offs[N_FRAMES - 1:N_FRAMES], nat)[0][0]
+
+    # ---- the phase's main path: what a user calls --------------------------
+    K.reset_launch_counts()
+    t_main = time.perf_counter()
+    dt_prot = timed("load Protein", lambda: M.TrajectoryAnalysis(system, device=dev).runner(
+        group="Protein").load_device(xtc, batch_size=BATCH))
+    dt_ca = timed("load CApca", lambda: M.TrajectoryAnalysis(system, device=dev).runner(
+        group="CApca").load_device(xtc, batch_size=BATCH))
+    _, rmsf = timed("rmsf (from the file)", lambda: M.rmsf(system, xtc, "Protein",
+                                                          batch_size=BATCH))
+    _, rmsf_nofit = timed("rmsf fit=False", lambda: M.rmsf(system, dt_prot, "Protein", fit=False))
+    rot = timed("rotmat", lambda: M.rotmat(system, dt_prot, "Protein"))
+    _, mat = timed("rmsd_matrix", lambda: M.rmsd_matrix(system, dt_prot, "Protein"))
+    off = mat[np.triu_indices(N_FRAMES, 1)]
+    cuts = {"gromos": float(np.median(off)), "linkage": float(np.quantile(off, 0.1)),
+            "jarvis-patrick": 0.0}
+    clusters = timed("cluster x3", lambda: {m: M.cluster(system, matrix=mat, cutoff=c, method=m,
+                                                         jp_m=3, jp_p=1)
+                                            for m, c in cuts.items()})
+    end_b = system.copy()
+    end_b.positions[:] = last
+    mo = timed("morph", lambda: M.morph(system, end_b, n=MODE_FRAMES, group="Protein",
+                                        output=paths["morph"]))
+    d3 = timed("dssp 3-state", lambda: M.dssp(system, dt_prot, "Protein", states=3))
+    d8 = timed("dssp 8-state", lambda: M.dssp(system, _window(dt_prot, 0, DSSP8_FRAMES),
+                                              "Protein", states=8))
+    rama = timed("ramachandran", lambda: M.ramachandran(system, xtc, "Protein",
+                                                        batch_size=BATCH))
+    pc = timed("pca", lambda: M.pca(system, dt_ca, "CApca"))
+    ent = timed("entropy", lambda: M.entropy(system, dt_ca, "CApca"))
+    dc = timed("dccm", lambda: M.dccm(system, dt_ca, "CApca"))
+    halves = timed("pca of the halves", lambda: [
+        M.pca(system, _window(dt_ca, a, b), "CApca", n_components=10)
+        for a, b in ((0, half), (half, N_FRAMES))])
+    ov = M.subspace_overlap(*halves, n=10)
+    cc = M.cosine_content(pc["projections"], n_modes=5)
+    mt = timed("mode_traj", lambda: M.mode_traj(system, pc, "CApca", n=MODE_FRAMES,
+                                                output=paths["modes"]))
+    rd = timed("rmsdist", lambda: M.rmsdist(system, xtc, "CAall", batch_size=BATCH))
+    md = timed("mdmat", lambda: M.mdmat(system, xtc, "Resmd", per_frame=True, batch_size=BATCH))
+    cs = timed("clustsize", lambda: M.clustsize(layout_bonds, xtc, "Waters", cutoff=0.35,
+                                                batch_size=BATCH))
+    converted = []
+
+    def conversion():
+        system.group_traj_writer_init("Protein", paths["fit"])
+        for s in M.convert_iter(system.xtc_iter(xtc, end_time=float(times[n_conv - 1])),
+                                [M.FitConverter(ref, "Protein"), M.WrapConverter()]):
+            s.traj_write_frame()
+            converted.append(s.positions[:n_prot].copy())
+        system.traj_close()
+
+    timed("convert_iter (fit + wrap, written)", conversion)
+    t_main = time.perf_counter() - t_main
+    counts = dict(K.launch_counts)
+    say("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    say(f"  the phase's main path: {t_main:.2f} s")
+    if cuda:
+        say(f"  max_memory_allocated over the main path: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    # centres: rmsf x2, rotmat, pca, entropy, dccm, the two halves: 2 each
+    # (the reference's COM and the window's); rmsd_matrix 1 (the window's);
+    # morph 7 (calc_rmsd_and_fit 3, two endpoint series of 2); every
+    # converted frame 3 (calc_rmsd_and_fit)
+    k12 = 2 * 8 + 1 + 7 + 3 * n_conv
+    predicted = {"bai_breen_estimate": k12, "bai_breen_refine": k12, "pair_reduce": 0}
+    say(f"  launches {counts}, predicted {predicted}")
+    if cuda:
+        check(counts == predicted, "K1, K2 and K3 launched as the code predicts")
+
+    # ---- the results against float64 oracles -------------------------------
+    t0 = time.perf_counter()
+    coords, b9s, *_ = native.xtc_read_frames(xtc, offs[:N_FRAMES], nat, stop_after=w0)
+    boxes = b9s[:, [0, 4, 8]].astype(np.float64)
+    for key, v in (("rmsf", rmsf), ("rmsf fit=False", rmsf_nofit)):
+        check(v.shape == (n_prot,) and np.isfinite(v).all(), f"{key}: {v.shape} finite")
+    want = (M.TrajectoryAnalysis(ref, device=dev).add_rmsd("Protein", reference=ref, name="rmsd")
+            .runner().run(xtc, batch_size=BATCH))
+    _fit_oracle_checks(ref.positions[:n_prot], coords[:, :n_prot], boxes, w, rmsf, rot,
+                       want["rmsd"], mat)
+    for m, res in clusters.items():
+        host = testing.host_clusters(mat, m, cuts[m], jp_m=3, jp_p=1)
+        check(np.array_equal(res["labels"], host),
+              f"cluster {m}: labels equal the host re-run ({len(res['sizes'])} clusters, "
+              f"sizes {res['sizes'][:5].tolist()})")
+    ca_idx = ref.group_indices("CApca")
+    w_ca = ref.topology.mass[ca_idx]
+    pc_ref, com_ca, _ = testing.host_prepared(ref.positions[ca_idx], boxes[0], w_ca)
+    fit_ca, edge_ca = [], []
+    for k in range(N_FRAMES):
+        qc, _, edge = testing.host_prepared(coords[k][ca_idx], boxes[k], w_ca)
+        fit_ca.append(qc @ testing.host_kabsch(pc_ref, qc, w_ca)[1] + com_ca)
+        edge_ca.append(edge.min())
+    fit_ca = np.asarray(fit_ca)
+    lam64 = testing.host_covariance_eigh(fit_ca, np.sqrt(w_ca.astype(np.float64)))
+    e = float(np.abs(pc["eigenvalues"] - lam64).max() / lam64[0])
+    check(e <= 1e-3, f"PCA: {len(lam64)} eigenvalues vs float64 covariance eigh within 1e-3 of "
+          f"the largest ({e:.1e}; leading {pc['eigenvalues'][:3].tolist()} amu nm^2; closest "
+          f"C-alpha to a wrap boundary {min(edge_ca):.1e} nm)")
+    # the entropies: the card's sums over its own eigenvalues, and the modes
+    # the 48 frames determine (rank F - 1) against float64; the other modes
+    # are null, and their float32 noise adds to both sums (as in the JAX
+    # package): printed, not held to float64
+    keys = ("schlitter", "quasiharmonic")
+    own = testing.host_entropy(ent["eigenvalues"], 300.0)
+    e_own = max(abs(ent[k] - v) / v for k, v in zip(keys, own))
+    rank = N_FRAMES - 1
+    top, top64 = (testing.host_entropy(x[:rank], 300.0) for x in (ent["eigenvalues"], lam64))
+    e_top = max(abs(a - b) / b for a, b in zip(top, top64))
+    full64 = testing.host_entropy(lam64, 300.0)
+    check(e_own <= 1e-12 and e_top <= 1e-3,
+          f"entropy: Schlitter {ent['schlitter']:.6f}, quasi-harmonic "
+          f"{ent['quasiharmonic']:.6f} kJ/(mol K), the formulas of its eigenvalues "
+          f"({e_own:.1e}); over the {rank} modes of rank within rel 1e-3 of float64 "
+          f"({e_top:.1e}); the null modes' float32 noise adds "
+          f"{ent['schlitter'] - top[0]:.6f} and {ent['quasiharmonic'] - top[1]:.6f} "
+          f"(float64: {full64[0] - top64[0]:.2e}, {full64[1] - top64[1]:.2e})")
+    d = fit_ca - fit_ca.mean(0)
+    c64 = np.einsum("fid,fjd->ij", d, d) / N_FRAMES
+    e = float(np.abs(dc["covariance"] - c64).max() / np.abs(c64).max())
+    check(e <= 1e-3 and np.array_equal(np.diag(dc["dccm"]), np.ones(n_pca, np.float32)),
+          f"dccm: covariance within 1e-3 of its largest float64 entry ({e:.1e}), unit diagonal")
+    check(0.0 <= ov["rmsip"] <= 1.0 + 1e-9 and np.isfinite(cc).all()
+          and mt["frames"].shape == (MODE_FRAMES, n_pca, 3),
+          f"subspace overlap of the halves: RMSIP {ov['rmsip']:.4f}, covariance overlap "
+          f"{ov['covariance_overlap']:.4f}; cosine content {np.round(cc, 4).tolist()}")
+    _dssp_oracle_checks(torch, coords[:, :n_prot], boxes,
+                        np.asarray(ref.topology.atomname.values()[:n_prot], str),
+                        d3["resnames"], d3["ss"], d8["ss"], dev)
+    check(d3["ss"].shape == (N_FRAMES, n_res) and d8["ss"].shape == (DSSP8_FRAMES, n_res),
+          f"dssp: [{N_FRAMES}, {n_res}] 3-state codes {d3['frac']}, [{DSSP8_FRAMES}, {n_res}] "
+          "8-state")
+    k = np.arange(1, n_res - 1) * testing.RESIDUE_SIZE
+    sites = {"phi": (k - 3, k, k + 2, k + 7), "psi": (k, k + 2, k + 7, k + 10)}
+    x = coords[:2].astype(np.float64)
+    half = boxes[:2, None, :] / 2
+    for key, (a, b, c, dd) in sites.items():
+        want_deg = testing.dihedrals_host_f64(x[:, a], x[:, b], x[:, c], x[:, dd], boxes[:2])
+        got = rama[key][:2]
+        # the named layout's backbone atoms are random points: a bond vector
+        # within 1e-5 nm of half a box on an axis may take the other image in
+        # float32 (as in the JAX package), which moves the dihedral
+        tie = np.zeros(got.shape, bool)
+        for p, q in ((a, b), (b, c), (c, dd)):
+            tie |= (np.abs(np.abs(x[:, q] - x[:, p]) - half) < 1e-5).any(-1)
+        e = float(np.abs((got - want_deg + 180) % 360 - 180)[~tie].max())
+        check(got.shape[1] == n_res - 2 and e <= 2e-2,
+              f"ramachandran {key}: {got.shape[1]} residues, within 2e-2 degrees of float64 on 2 "
+              f"frames ({e:.1e}; {int(tie.sum())} sites with a bond at a half-box tie excused)")
+    blocks = np.arange(10 * n_md).reshape(n_md, 10)
+    band = slice(0, min(MDMAT_BAND, n_md))
+    for f in range(2):
+        want_md = testing.host_residue_min(coords[f], boxes[f], blocks, rows=blocks[band])
+        e = float(np.abs(md["frames"][f][band] - want_md).max())
+        check(md["frames"].shape == (N_FRAMES, n_md, n_md) and e <= 1e-5,
+              f"mdmat frame {f}: rows 0..{want_md.shape[0] - 1} of the {n_md} x {n_md} residue "
+              f"matrix within 1e-5 nm of float64 ({e:.1e})")
+    # the waters' molecules by the guessed bonds (some waters overlap and bond)
+    wat = w0 + np.arange(3 * n_wat)
+    guessed = np.bincount(np.unique(ref.topology.molecule_ids()[wat], return_inverse=True)[1])
+    say(f"  phase 11's guessed bonds put the {3 * n_wat} atoms of the {n_wat} waters into "
+        f"{len(guessed)} molecules, the largest of {guessed.max()} of them")
+    mol = layout_bonds.topology.molecule_ids()[wat]
+    _, first = np.unique(mol, return_index=True)
+    wblocks = [wat[mol == mol[i]] for i in np.sort(first)]
+    ww = native.xtc_read_frames(xtc, offs[:2], nat, stop_after=w0 + 3 * n_wat)[0]
+    from groan_rs_tpu_torch.models.structure import _connected_components
+
+    def function_of(a, b):                 # every class of a lies in one class of b
+        return len(np.unique(np.stack([a, b], 1), axis=0)) == len(np.unique(a))
+
+    for f in range(2):
+        # grid coordinates meet the cutoff exactly (0.35^2 nm^2 is a sum of
+        # squared grid steps), where float32 may decide either way: the
+        # clusters must lie between those of d < 0.35 - 1e-5 and d < 0.35 + 1e-5
+        dmin = testing.host_residue_min(ww[f], boxes[f], wblocks)
+        strict = _connected_components(dmin < 0.35 - 1e-5)
+        loose = _connected_components(dmin < 0.35 + 1e-5)
+        got = cs["labels"][f]
+        exact = np.array_equal(strict, loose)
+        check(function_of(strict, got) and function_of(got, loose)
+              and (not exact or np.array_equal(got, strict)),
+              f"clustsize frame {f}: {cs['n_clusters'][f]} clusters of the {len(wblocks)} "
+              f"molecules of {n_wat} waters (largest {cs['max_size'][f]}) equal the float64 "
+              f"contact graph's{'' if exact else ' up to the ties'} "
+              f"({int((np.abs(dmin - 0.35) < 1e-5).sum()) // 2} molecule pairs within 1e-5 nm "
+              "of the cutoff)")
+    check(float(rd["rmsdist"][0]) <= 1e-5 and np.isfinite(rd["rmsdist"]).all(),
+          f"rmsdist of the {n_res} C-alphas: frame 0 (the reference) {rd['rmsdist'][0]:.1e}, "
+          f"frame {N_FRAMES - 1} {rd['rmsdist'][-1]:.4f} nm")
+    check(np.abs(mo["rmsd_a"][0]) <= 1e-5 and np.abs(mo["rmsd_b"][-1]) <= 1e-4,
+          f"morph: RMSD to A at lambda 0 {mo['rmsd_a'][0]:.1e}, to B at lambda 1 "
+          f"{mo['rmsd_b'][-1]:.1e}")
+    _read_back(system, "Protein", paths["morph"], mo["frames"], "morph XTC")
+    _read_back(system, "CApca", paths["modes"], mt["frames"], "mode_traj XTC")
+    _read_back(system, "Protein", paths["fit"], converted, "convert_iter (fit + wrap) XTC")
+    say(f"  oracles {time.perf_counter() - t0:.1f} s")
+
+    # ---- the known answer: ideal helices and hairpins ----------------------
+    helix, hairpin = testing.ideal_backbone(50, *testing.HELIX_PHI_PSI), testing.ideal_hairpin(25)
+    pieces = ([(helix, f"H{i}", 0) for i in range(IDEAL_PIECES)]
+              + [(hairpin, f"E{i}", 25) for i in range(IDEAL_PIECES)])
+    state = testing.backbone_state(pieces)
+    ideal = convert.system_from_state(state, device=dev)
+    ipath = os.path.join(K.BUILD_DIR, "smoke_ideal.xtc")
+    if os.path.exists(ipath):
+        os.unlink(ipath)
+    native.xtc_write_frame(ipath, len(state["positions"]), 0, 0.0,
+                           np.diag(state["box"]).reshape(9), state["positions"], 10000.0)
+    for states in (3, 8):
+        ss = M.dssp(ideal, ipath, "Backbone", states=states)["ss"][0].reshape(-1, 50)
+        hel, hp = ss[:IDEAL_PIECES], ss[IDEAL_PIECES:]
+        ok = (hel[:, 3:49] == "H").all() and (hp[:, 1:23] == "E").all() \
+            and (hp[:, 27:49] == "E").all()
+        check(ok, f"dssp ({states}-state) of {IDEAL_PIECES} ideal helices and {IDEAL_PIECES} "
+              f"hairpins ({ss.size} residues): helix interiors H, strands E "
+              f"(e.g. {''.join(hel[0])} / {''.join(hp[0])})")
+    os.unlink(ipath)
+
+    # ---- the kernel path against the twin path --------------------------------
+    dt4 = _window(dt_prot, 0, 4)
+    cpu = ref.copy()
+    cpu.set_device("cpu")
+    pos4 = (dt4.pos.float() * dt4.inv_prec[:, None, None]).contiguous()
+    bx4 = dt4.boxes
+    wt = torch.as_tensor(w, device=pos4.device)
+    com_k = C.center(pos4, bx4[:, None, :], weights=wt).cpu()
+    com_p = C.center(pos4.cpu(), bx4.cpu()[:, None, :], weights=wt.cpu())
+    est_k = K.bai_breen_estimate(pos4, None, bx4).cpu().numpy()
+    est_p = K.bai_breen_estimate(pos4.cpu(), None, bx4.cpu()).numpy()
+    flips, jump = testing.center_jump_bound(pos4.cpu().numpy(), est_k, est_p, bx4.cpu().numpy())
+    gap = float((com_k - com_p).abs().max())
+    check(gap <= 1e-4 + float(jump.max()),
+          f"fit COM, kernel path vs twin path on 4 frames: {gap:.2e} (1e-4 plus the image "
+          f"changes, {int(flips.sum())} atoms)")
+    bc = bx4.cpu().numpy()[:, None, :] / 2
+    p4 = pos4.cpu().numpy()
+
+    def image(com):
+        return np.floor((p4 + bc - com.numpy()[:, None, :]) / (2 * bc))
+
+    moved = (image(com_k) != image(com_p)).any(-1)        # [4, K]: wrapped otherwise
+    r_k, r_p = M.rmsf(ref, dt4, "Protein")[1], M.rmsf(cpu, dt4, "Protein")[1]
+    m_k, m_p = M.rmsd_matrix(ref, dt4, "Protein")[1], M.rmsd_matrix(cpu, dt4, "Protein")[1]
+    e_r = float(np.abs(r_k - r_p)[~moved.any(0)].max())
+    fr = ~moved.any(1)
+    e_m = float(np.abs(m_k - m_p)[np.ix_(fr, fr)].max()) if fr.any() else 0.0
+    check(e_r <= 1e-4 and e_m <= 1e-4,
+          f"kernel path vs twin path (K1 + K2 on the card against their plain twins on the "
+          f"CPU): rmsf {e_r:.1e}, rmsd_matrix rows 0-3 {e_m:.1e}, within 1e-4 "
+          f"({int(moved.any(0).sum())} atoms wrapped into another image excused)")
+    say(f"  phase 13 seconds after the main path: {time.perf_counter() - t0:.1f}")
+    return counts
+
+
 def main():
     import torch
 
@@ -2088,8 +2599,12 @@ def main():
 
     # ---- 12. the System API ---------------------------------------------------
     api_counts = system_api_phase(torch, xtc, offs, nat, box, fsys, dev)
-    del fsys
     t_phase = phase_seconds(12, t_phase)
+
+    # ---- 13. the conformational analyses ------------------------------------
+    struct_counts = structure_phase(torch, xtc, offs, nat, box, fsys, dev)
+    del fsys
+    t_phase = phase_seconds(13, t_phase)
 
     # ---- where the time goes: one profiled pass of each kind -----------
     # the triclinic main path over one batch: phase 9's 12-frame file (the
@@ -2139,7 +2654,8 @@ def main():
         "pair_reduce": "per-axis minimum image (torch.cdist has none)"}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
-         "launches": counts[k] + file_counts[k] + hb_counts[k] + api_counts[k],
+         "launches": (counts[k] + file_counts[k] + hb_counts[k] + api_counts[k]
+                      + struct_counts[k]),
          "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
@@ -2149,7 +2665,8 @@ def main():
          "shape": rec[k]["shape"], "observables_launches": obs_counts[k],
          "triclinic_launches": tri_counts[k] + tobs_counts[k],
          "main_path_launches": counts[k], "files_launches": file_counts[k],
-         "hbonds_launches": hb_counts[k], "system_api_launches": api_counts[k]}
+         "hbonds_launches": hb_counts[k], "system_api_launches": api_counts[k],
+         "structure_launches": struct_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,13 +11,16 @@ reads from a System.  Keys:
 - `groups`     `{name: sorted int indices}`
 - `name`       optional system name
 
-Optional (a state without them loads with no charges, no bonds and no
-names):
+Optional (a state without them loads with no charges, no bonds, no
+names and every atom in residue 0):
 
 - `charge`     float32 `[N]`;  `has_charge` bool `[N]`
 - `bonds`      int `[K, 2]` bonded atom pairs
 - `element`    str `[N]` element symbols ('' = not set)
 - `atomname`   str `[N]` atom names
+- `resnum`     int `[N]` residue numbers (default 0)
+- `resname`    str `[N]` residue names
+- `chain`      str `[N]` chain identifiers ('' = no chain)
 """
 
 from __future__ import annotations
@@ -43,9 +46,12 @@ def system_from_state(state: dict, device=None) -> System:
         topo.charge = np.asarray(state["charge"], np.float32).reshape(n).copy()
         topo.has_charge = np.asarray(
             state.get("has_charge", ~np.isnan(topo.charge)), bool).reshape(n).copy()
-    for key, attr in (("element", "element_symbol"), ("atomname", "atomname")):
+    for key in ("element", "atomname", "resname", "chain"):
         if state.get(key) is not None:
-            setattr(topo, attr, np.asarray(state[key], str).reshape(n).copy())
+            setattr(topo, "element_symbol" if key == "element" else key,
+                    np.asarray(state[key], str).reshape(n).copy())
+    if state.get("resnum") is not None:
+        topo.resnum = np.asarray(state["resnum"], np.int64).reshape(n).copy()
     if state.get("bonds") is not None:
         topo.set_bonds_from_pairs(state["bonds"])
     box = np.asarray(state["box"], np.float32)

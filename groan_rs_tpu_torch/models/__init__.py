@@ -1,5 +1,43 @@
-"""Composed analyses."""
+"""Composed analyses: the per-frame analysis pass, the conformational
+analyses of `structure.py` and the per-frame converters of `convert.py`."""
 
+from .convert import (
+    CenterConverter,
+    FitConverter,
+    FrameAnalyze,
+    FrameConvert,
+    MakeWholeConverter,
+    TranslateConverter,
+    UnwrapConverter,
+    WrapConverter,
+    analyze_iter,
+    convert_iter,
+)
 from .pipeline import PipelineRunner, TrajectoryAnalysis, run_many
+from .structure import (
+    chi,
+    cluster,
+    clustsize,
+    cosine_content,
+    dccm,
+    dssp,
+    entropy,
+    mdmat,
+    mode_traj,
+    morph,
+    pca,
+    ramachandran,
+    rmsd_matrix,
+    rmsdist,
+    rmsf,
+    rotmat,
+    subspace_overlap,
+)
 
-__all__ = ["PipelineRunner", "TrajectoryAnalysis", "run_many"]
+__all__ = ["PipelineRunner", "TrajectoryAnalysis", "run_many",
+           "CenterConverter", "FitConverter", "FrameAnalyze", "FrameConvert",
+           "MakeWholeConverter", "TranslateConverter", "UnwrapConverter",
+           "WrapConverter", "analyze_iter", "convert_iter",
+           "chi", "cluster", "clustsize", "cosine_content", "dccm", "dssp",
+           "entropy", "mdmat", "mode_traj", "morph", "pca", "ramachandran",
+           "rmsd_matrix", "rmsdist", "rmsf", "rotmat", "subspace_overlap"]

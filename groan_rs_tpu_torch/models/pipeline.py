@@ -1150,3 +1150,205 @@ def run_many(analyses, trajectory, *, batch_size: int = 32):
         out["times"] = trajectory.times
         out["steps"] = trajectory.steps
     return results
+
+
+# ------------------------------------------------- loaders shared by the models
+# (JAX `models/pipeline.py:1546-1790`)
+
+def _system_triclinic(system) -> bool:
+    """True when the system's box needs box-matrix forms: the models load
+    a triclinic system with `[F, 3, 3]` boxes and take the exact triclinic
+    math (the reference's own RMSD is orthogonal-only, lib.rs:353-355)."""
+    box = system.get_box()
+    return box is not None and not box.is_orthogonal()
+
+
+def _resident_group_cols(system, dtraj, group, gsel):
+    """Column indices of `group`'s atoms inside a DeviceTrajectory's
+    shipped-atom layout (raises if the layout misses any)."""
+    shipped = getattr(dtraj, "sel", None)
+    if shipped is None:
+        return gsel
+    lut = np.full(int(system.get_n_atoms()), -1, np.int64)
+    lut[np.asarray(shipped)] = np.arange(len(shipped))
+    cols = lut[gsel]
+    if (cols < 0).any():
+        raise ParallelError(
+            f"the DeviceTrajectory's shipped layout does not contain "
+            f"every atom of group '{group}'; load with ship='all' or "
+            "runner(group=...)")
+    return cols
+
+
+def _group_frames(system, trajectory, group, gsel, batch_size,
+                  start_time=None, end_time=None, step=None):
+    """The group's window: a DeviceTrajectory given by the caller (its
+    columns of the group) or one loaded through `runner(group=group)`
+    from a filename -> (DeviceTrajectory, columns)."""
+    from ..parallel.engine import DeviceTrajectory
+
+    if isinstance(trajectory, DeviceTrajectory):
+        if any(v is not None for v in (start_time, end_time, step)):
+            raise ParallelError(
+                "a DeviceTrajectory already fixes its frame window; apply "
+                "-b/-e/--step when loading it (load_device(start_time=...))")
+        return trajectory, _resident_group_cols(system, trajectory, group, gsel)
+    runner = TrajectoryAnalysis(
+        system, device=system.device,
+        triclinic=_system_triclinic(system)).runner(group=group)
+    dt = runner.load_device(trajectory, batch_size=batch_size,
+                            start_time=start_time, end_time=end_time, step=step)
+    return dt, np.arange(len(gsel))
+
+
+def _window_pos(dt, cols, device):
+    """The window's float32 positions of `cols` `[F, K, 3]` and its boxes
+    on `device`, dequantized as the engine does (`q.float() * inv_prec`,
+    bit-identical to the file's float decode)."""
+    j = torch.as_tensor(np.asarray(cols), dtype=torch.int64, device=dt.pos.device)
+    pos = dt.pos.index_select(1, j)
+    if dt.kind == "q16":
+        pos = pos.to(torch.float32) * dt.inv_prec[:, None, None]
+    return pos.to(device), dt.boxes.to(device)
+
+
+def _resident_group_pos(system, trajectory, group, batch_size,
+                        start_time=None, end_time=None, step=None):
+    """Shared loader: the group's float32 positions `[F, K, 3]` and boxes
+    (`[F, 3]` lengths, or `[F, 3, 3]` matrices for a triclinic system) on
+    the System's device, its global indices and the DeviceTrajectory.
+
+    `group` is an existing group name or a GSL query (compiled into a
+    transient group for the load).  The time window applies at load; a
+    DeviceTrajectory already fixes its frame set, so combining one with a
+    window raises."""
+    tmp = None
+    try:
+        system.group_indices(group)
+    except GroupError:
+        tmp = "__resident_sel"
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            system.group_create(tmp, group)
+        group = tmp
+    try:
+        gsel = np.asarray(system.group_indices(group))
+        if gsel.size == 0:
+            raise GroupError(f"group '{group}' is empty", code="EmptyGroup")
+        dt, cols = _group_frames(system, trajectory, group, gsel, batch_size,
+                                 start_time, end_time, step)
+    finally:
+        if tmp is not None:
+            system.group_remove(tmp)
+    pos, boxes = _window_pos(dt, cols, system.device)
+    return gsel, pos, boxes, dt
+
+
+def _blocks_by_key(key):
+    """Local indices grouped by equal `key` rows ([K] or [K, c]) in order
+    of first appearance -> (first local index of each block, blocks: each
+    an ascending local-index array)."""
+    _, first, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
+    rank = np.empty(first.shape[0], np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(first.shape[0])
+    block_of = rank[inv.reshape(-1)]
+    order = np.argsort(block_of, kind="stable")
+    bounds = np.searchsorted(block_of[order], np.arange(first.shape[0] + 1))
+    return np.sort(first), [order[bounds[i]:bounds[i + 1]]
+                            for i in range(first.shape[0])]
+
+
+def _residue_blocks(system, gsel):
+    """Group atoms split by (chain, resnum) in order of appearance ->
+    (resids [R], resnames [R], blocks: local-index arrays into the group's
+    own 0..K-1 layout, each ascending)."""
+    topo = system.topology
+    gsel = np.asarray(gsel)
+    heads, blocks = _blocks_by_key(np.stack(
+        [topo.chain.codes[gsel].astype(np.int64), np.asarray(topo.resnum)[gsel]], 1))
+    resids = np.asarray(topo.resnum)[gsel[heads]].astype(np.int64)
+    resnames = np.asarray(topo.resname.categories, object)[
+        topo.resname.codes[gsel[heads]]]
+    return resids, resnames, blocks
+
+
+def _sel_indices(system, sel: str) -> np.ndarray:
+    """Indices for `sel`: an existing group name, or a GSL query."""
+    try:
+        return np.asarray(system.group_indices(sel))
+    except GroupError:
+        from ..select.compile import select_to_mask
+
+        return np.flatnonzero(select_to_mask(sel, system))
+
+
+def _transient_indices(system, spec: str) -> np.ndarray:
+    """Global atom indices of a group name or GSL query."""
+    try:
+        return np.asarray(system.group_indices(spec))
+    except GroupError:
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            system.group_create("__transient_sel", spec)
+        try:
+            return np.asarray(system.group_indices("__transient_sel"))
+        finally:
+            system.group_remove("__transient_sel")
+
+
+_CHI_SITES = [
+    # chi_k: 4 atom names; alternatives per slot, first present wins
+    (("N",), ("CA",), ("CB",), ("CG", "CG1", "OG", "OG1", "SG")),
+    (("CA",), ("CB",), ("CG", "CG1"), ("CD", "CD1", "OD1", "ND1", "SD")),
+    (("CB",), ("CG",), ("CD", "SD"), ("CE", "OE1", "NE")),
+    (("CG",), ("CD",), ("CE", "NE"), ("NZ", "CZ")),
+]
+
+
+class _named_group:
+    """Context manager: `group` verbatim if it names an existing group,
+    else a transient group compiled from it as a GSL query."""
+
+    def __init__(self, system, group, tmp):
+        self.system, self.group, self.tmp = system, group, tmp
+
+    def __enter__(self):
+        try:
+            self.system.group_indices(self.group)
+            self.tmp = None
+            return self.group
+        except GroupError:
+            self.system.group_create_from_indices(
+                self.tmp, _transient_indices(self.system, self.group))
+            return self.tmp
+
+    def __exit__(self, *exc):
+        if self.tmp is not None:
+            self.system.group_remove(self.tmp)
+        return False
+
+
+# The analysis families live in sibling modules; every name stays
+# importable from here (PEP 562), as in the JAX package.
+_SPLIT_MODULES = {name: "structure" for name in (
+    "_connected_components", "_fit_inputs", "_pca_math", "chi", "cluster",
+    "clustsize", "cosine_content", "dccm", "dssp", "entropy", "mdmat",
+    "mode_traj", "morph", "pca", "ramachandran", "rmsd_matrix", "rmsdist",
+    "rmsf", "rotmat", "subspace_overlap")}
+
+
+def __getattr__(name):
+    mod = _SPLIT_MODULES.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module("." + mod, __package__), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_SPLIT_MODULES))

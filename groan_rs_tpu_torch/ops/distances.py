@@ -10,6 +10,10 @@ masked ones take the dense path (`distance_matrix`, the JAX package's own
 XLA path as plain torch).  The routing rule and its threshold are the JAX
 package's, so both packages take the same branch on the same input.
 
+`residue_min_matrix` (`:57-101`, the `gmx mdmat` and `gmx clustsize`
+tile) is plain torch, as the JAX function is jnp: the smallest
+minimum-image atom-atom distance between padded residue blocks per frame.
+
 Triclinic boxes (`[B, 3, 3]` matrices) take a plain-torch pair path in
 every case: `min_distance_triclinic`, `contact_count_triclinic` and
 `pair_distance_histogram` with matrix boxes.  The JAX package builds the
@@ -40,10 +44,14 @@ from .pbc import (_masked_norm, box_inverse, box_volume, distance, min_image,
 __all__ = ["center_distance", "pair_distances", "distance_matrix",
            "distance_matrix_masked", "min_distance", "contact_count",
            "min_distance_triclinic", "contact_count_triclinic",
-           "pair_distance_histogram", "rdf_normalization"]
+           "pair_distance_histogram", "rdf_normalization",
+           "residue_min_matrix"]
 
 # pairs per chunk of the pair paths that build distances in torch
 _CHUNK_PAIRS = 1 << 24
+
+# elements of one `residue_min_matrix` displacement tile over its frames
+_TILE_ELEMS = 1 << 26
 
 # at or above this many pairs (N*M) unmasked calls route to K3; below it the
 # dense path (and masks) apply — GROAN_PAIR_TILE_THRESHOLD as in groan_rs_tpu
@@ -233,3 +241,46 @@ def rdf_normalization(box_lengths, n_a: int, n_b: int, r_max: float,
     n_pairs = n_a * n_b - (n_a if exclude_self else 0)
     shell_t = torch.as_tensor(shell, dtype=torch.float32, device=b.device)
     return n_pairs * shell_t / vol[..., None]
+
+
+def residue_min_matrix(pos, boxes, block_idx, block_mask, *, chunk: int = 16):
+    """Smallest atom-atom PBC distance between residue blocks, per frame.
+
+    pos `[F, K, 3]`; boxes `[F, 3]` lengths or `[F, 3, 3]` matrices (the
+    exact 27-image minimum image); block_idx `[R, P]` atom indices into K,
+    padded; block_mask `[R, P]` validity -> `[F, R, R]`.  Rows go `chunk`
+    residues at a time (fewer where one row's `[R, P, P, 3]` tile is large)
+    over as many frames as keep the `[frames, chunk, R, P, P, 3]`
+    displacement tile within `_TILE_ELEMS` elements (the JAX function maps
+    over frames one at a time; the tile of one frame is its
+    `[chunk, R, P, P, 3]`)."""
+    pos = torch.as_tensor(pos, dtype=torch.float32)
+    dev = pos.device
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
+    bi = torch.as_tensor(np.asarray(block_idx), dtype=torch.int64, device=dev)
+    bm = torch.as_tensor(np.asarray(block_mask), dtype=torch.bool, device=dev)
+    f = pos.shape[0]
+    r, p = bi.shape
+    g = pos[:, bi]                                        # [F, R, P, 3]
+    out = torch.empty((f, r, r), dtype=torch.float32, device=dev)
+    big = torch.tensor(1e30, dtype=torch.float32, device=dev)
+    per_row = r * p * p * 3
+    chunk = max(1, min(chunk, _TILE_ELEMS // per_row))
+    fb = max(1, _TILE_ELEMS // (min(chunk, r) * per_row))
+    triclinic = boxes.dim() == 3
+    for f0 in range(0, f, fb):
+        gf, bx = g[f0:f0 + fb], boxes[f0:f0 + fb]
+        hinv = box_inverse(bx) if triclinic else None
+        for r0 in range(0, r, chunk):
+            ga = gf[:, r0:r0 + chunk]                     # [b, C, P, 3]
+            d = ga[:, :, None, :, None, :] - gf[:, None, :, None, :, :]
+            if triclinic:                                 # [b, C, R, P, P]
+                d2 = min_image_norm2_frames(d.reshape(d.shape[0], -1, 3), bx,
+                                            hinv).reshape(d.shape[:-1])
+            else:
+                d = min_image(d, bx[:, None, None, None, None, :])
+                d2 = (d * d).sum(-1)
+            valid = bm[r0:r0 + chunk, None, :, None] & bm[None, :, None, :]
+            d2 = torch.where(valid, d2, big)
+            out[f0:f0 + fb, r0:r0 + chunk] = torch.sqrt(d2.amin((-2, -1)))
+    return out

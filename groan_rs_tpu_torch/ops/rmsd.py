@@ -17,6 +17,10 @@ Port of `groan_rs_tpu/ops/rmsd.py:47-153` (reference `src/system/rmsd.rs`):
   triclinic forms: every atom unwrapped around the triclinic refined COM
   by the exact minimum image (plain torch, no kernel), then the weighted
   centroid and the same `kabsch`.
+- `rmsd_matrix` (`:156-200`) — the all-pairs fitted RMSD of a frame
+  batch (`gmx rms -m`): every frame prepared once (K1 + K2 over the whole
+  `[F, K, 3]`, or the triclinic unwrap), then rows `chunk` at a time, each
+  one QCP `eigh` batch over the chunk's `chunk x F` pairs.
 
 The covariance and the rotated-difference products are small einsums,
 which the JAX package left to XLA outside any Pallas kernel; TF32 is off
@@ -32,8 +36,8 @@ from .. import backend as _backend  # noqa: F401  (TF32 off before any product)
 from .center import center, center_triclinic
 from .pbc import min_image_triclinic, min_image_triclinic_frames, wrap
 
-__all__ = ["prepare_coords", "kabsch", "rmsd_frames", "fit_transform",
-           "prepare_coords_triclinic", "rmsd_frames_triclinic"]
+__all__ = ["prepare_coords", "kabsch", "rmsd_frames", "rmsd_matrix",
+           "fit_transform", "prepare_coords_triclinic", "rmsd_frames_triclinic"]
 
 
 def prepare_coords(positions, box, mask=None, weights=None, com=None):
@@ -118,6 +122,38 @@ def rmsd_frames(ref_prepared, ref_center, frames, boxes, w, mask=None, com=None)
     r, _, rms = kabsch(ref_prepared[None, ...], tgt, w_eff,
                        ref_center[None, :], tgt_center)
     return r, rms
+
+
+def rmsd_matrix(frames, boxes, w, *, chunk: int = 8):
+    """All-pairs fitted RMSD of a frame batch -> `[F, F]` (the `gmx rms -m`
+    matrix; feeds GROMOS clustering).
+
+    frames `[F, K, 3]`; boxes `[F, 3]` lengths or `[F, 3, 3]` matrices
+    (frames then unwrap around the exact triclinic refined COM, the
+    `rmsd_frames_triclinic` convention); w `[K]` masses.  Every pair uses
+    the single-pair `calc_rmsd` convention (mass-weighted centroids,
+    unweighted covariance, mass-weighted deviations), so `out[i, j]` is
+    `calc_rmsd` between the frame-i and frame-j systems: symmetric with a
+    zero diagonal up to float32 rounding.  Rows go `chunk` at a time, so
+    the largest tensor is `[chunk, F, K, 3]`."""
+    frames = torch.as_tensor(frames, dtype=torch.float32)
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=frames.device)
+    wj = torch.as_tensor(w, dtype=torch.float32, device=frames.device)
+    f = frames.shape[0]
+    if boxes.dim() == 3:
+        com = center_triclinic(frames, boxes, weights=wj)
+        prepped = com[:, None, :] + min_image_triclinic_frames(
+            frames - com[:, None, :], boxes)
+        ctr = (wj[None, :, None] * prepped).sum(1) / wj.sum()
+    else:
+        prepped, ctr = prepare_coords(frames, boxes, weights=wj)
+    out = torch.empty((f, f), dtype=torch.float32, device=frames.device)
+    for start in range(0, f, chunk):
+        p = prepped[start:start + chunk]
+        cp = ctr[start:start + chunk]
+        _, _, out[start:start + chunk] = kabsch(
+            p[:, None], prepped[None], wj, cp[:, None], ctr[None])
+    return out
 
 
 def fit_transform(all_positions, box, group_com, rotation, ref_group_com):

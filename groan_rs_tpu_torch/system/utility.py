@@ -25,8 +25,8 @@ class UtilityMixin:
     def _center_on(self, reference: str, dimension: Dimension, estimate):
         if self.group_get_n_atoms(reference) == 0:  # raises NotFound first
             raise GroupError(f"group '{reference}' is empty", code="EmptyGroup")
-        shift = (self.get_box_center() - estimate(reference)) * dimension.mask()
-        self.atoms_translate(shift)
+        ref_center = estimate(reference)  # before the box: its errors come first
+        self.atoms_translate((self.get_box_center() - ref_center) * dimension.mask())
 
     def atoms_center(self, reference: str, dimension: Dimension):
         """Move the reference group's estimated centre of geometry to the

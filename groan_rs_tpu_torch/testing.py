@@ -53,6 +53,18 @@ JAX reader's concatenation dedup, time range and stride in plain numpy,
 and `host_kinetic` sums kinetic energies in float64.
 `dihedral_worst_site` locates the largest dihedral error of a pass and
 what float32 rounding there can explain.
+
+For the conformational analyses (`models/structure.py`): ideal backbones
+built by NeRF (`ideal_backbone`, the JAX package's test geometry; an
+alpha helix at `HELIX_PHI_PSI`; `ideal_hairpin`, two antiparallel strands
+at `STRAND_PHI_PSI` whose turn is left out) laid out as a System state by
+`backbone_state`; float64 oracles of the RMSD fit (`host_prepared`,
+`host_kabsch`; the preparation reports how close each atom sits to the
+wrap boundary), of the covariance eigenvalues and the entropies
+(`host_covariance_eigh`, `host_entropy`), of the residue minimum-distance
+matrix (`host_residue_min`), of the Kabsch-Sander energies and codes
+(`host_dssp_energy`, `host_dssp_codes`) and of the `gmx cluster` labels
+(`host_clusters`).
 """
 
 from __future__ import annotations
@@ -76,7 +88,12 @@ __all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host
            "dodecahedron", "put_atoms_in_box", "build_trajectory_triclinic",
            "REFINE_TIE_LENGTHS", "REFINE_TIE_KS", "refine_tie_sets",
            "refine_tie_atoms", "dihedral_worst_site", "named_layout",
-           "expected_frames", "host_kinetic", "KB"]
+           "expected_frames", "host_kinetic", "KB",
+           "place_atom", "ideal_backbone", "ideal_hairpin", "backbone_state",
+           "HELIX_PHI_PSI", "STRAND_PHI_PSI", "SHEET_SPACING",
+           "host_prepared", "host_kabsch",
+           "host_residue_min", "host_entropy", "host_clusters",
+           "host_covariance_eigh", "host_dssp_energy", "host_dssp_codes"]
 
 
 def host_refined_center(p, box, w=None):
@@ -1182,3 +1199,362 @@ def refine_tie_atoms():
     frames = np.repeat(est[f][:, None, :], 4, 1)
     frames[np.arange(len(f)), 0, ax] = pos[f, a, ax]
     return frames, est[f], box[f], np.array([1, 0, 0, 0], np.float32)
+
+
+# ------------------------------------------------- ideal backbones (DSSP)
+
+_BACKBONE_MASS = {"N": 14.007, "CA": 12.011, "C": 12.011, "O": 15.999}
+
+
+def place_atom(a, b, c, bond, angle, torsion):
+    """NeRF: atom d with |cd| = bond (nm), angle(b, c, d) and
+    torsion(a, b, c, d) in degrees."""
+    u = c - b
+    u = u / np.linalg.norm(u)
+    n = np.cross(b - a, u)
+    n = n / np.linalg.norm(n)
+    m = np.cross(n, u)
+    ang, tor = np.radians(angle), np.radians(torsion)
+    return c + bond * (-np.cos(ang) * u
+                       + np.sin(ang) * (np.cos(tor) * m + np.sin(tor) * n))
+
+
+def ideal_backbone(nres: int, phi: float, psi: float):
+    """Ideal backbone (nm) of `nres` residues with uniform phi/psi and
+    omega = 180 degrees (bond lengths N-CA 0.1458, CA-C 0.1525, C-N 0.1329,
+    C=O 0.1231) -> float64 (N, CA, C, O), each [nres, 3]."""
+    bn, bca, bc, bo = 0.1458, 0.1525, 0.1329, 0.1231
+    n = [np.array([0.0, 0.0, 0.0])]
+    ca = [np.array([bn, 0.0, 0.0])]
+    c = [place_atom(np.array([0.0, 0.1, 0.0]), n[0], ca[0], bca, 111.2, phi)]
+    for i in range(1, nres):
+        n.append(place_atom(n[i - 1], ca[i - 1], c[i - 1], bc, 116.2, psi))
+        ca.append(place_atom(ca[i - 1], c[i - 1], n[i], bn, 121.7, 180.0))
+        c.append(place_atom(c[i - 1], n[i], ca[i], bca, 111.2, phi))
+    o = []
+    for i in range(nres):
+        nxt = n[i + 1] if i + 1 < nres else place_atom(n[i], ca[i], c[i], bc,
+                                                       116.2, psi)
+        d1 = (ca[i] - c[i]) / np.linalg.norm(ca[i] - c[i])
+        d2 = (nxt - c[i]) / np.linalg.norm(nxt - c[i])
+        u = -(d1 + d2)
+        o.append(c[i] + bo * u / np.linalg.norm(u))
+    return tuple(np.asarray(x) for x in (n, ca, c, o))
+
+
+HELIX_PHI_PSI = (-57.0, -47.0)
+STRAND_PHI_PSI = (-139.0, 135.0)
+SHEET_SPACING = 0.48  # nm between the two strands' axes
+
+
+def ideal_hairpin(n_strand: int):
+    """A two-stranded antiparallel beta hairpin (nm) whose turn is left out:
+    strand A (`n_strand` residues, odd, at STRAND_PHI_PSI) and strand B,
+    A turned by 180 degrees about the sheet normal through a line
+    SHEET_SPACING / 2 off A's axis, so that A's residue k faces B's residue
+    n_strand - 1 - k, the even k as hydrogen-bonded pairs.  In sequence B
+    follows A (B's first residue faces A's last) -> float64 (N, CA, C, O),
+    each [2 n_strand, 3]."""
+    if n_strand % 2 == 0:
+        raise ValueError("n_strand must be odd (the pairs facing each other "
+                         "then share their parity)")
+    bb = ideal_backbone(n_strand, *STRAND_PHI_PSI)
+    ca = bb[1]
+    mid = ca.mean(0)
+    axis = np.linalg.svd(ca - mid)[2][0]
+    co = bb[3] - bb[2]                          # C=O, alternating across the axis
+    side = (co * ((-1.0) ** np.arange(n_strand))[:, None]).sum(0)
+    side -= axis * (side @ axis)
+    side /= np.linalg.norm(side)
+    normal = np.cross(axis, side)
+    rot = 2.0 * np.outer(normal, normal) - np.eye(3)   # 180 degrees about normal
+    pivot = mid + side * (SHEET_SPACING / 2)
+    return tuple(np.concatenate([x, (x - pivot) @ rot.T + pivot]) for x in bb)
+
+
+def backbone_state(pieces, box: float | None = None, gap: int = 2) -> dict:
+    """The state (`convert.system_from_state`) of backbone pieces: each a
+    (N, CA, C, O) tuple, a chain id and, for a hairpin, its strand length
+    (its second strand's residue numbers then skip `gap` for the left-out
+    turn).  Atoms go N CA C O per residue, residues ALA numbered from 1 in
+    each piece; the pieces sit on a square grid in the xy-plane, cells 2 nm
+    wider than the largest piece, centred in a cubic box of side `box`
+    (default: the grid plus 2 nm); groups 'Backbone' (all) and 'chain<id>'
+    per chain id."""
+    xyz = [np.stack(bb, 1) for bb, _, _ in pieces]            # [R, 4, 3] each
+    cell = max(float(np.ptp(x.reshape(-1, 3), 0).max()) for x in xyz) + 2.0
+    cols = int(np.ceil(np.sqrt(len(xyz))))
+    pos, names, resnum, chain = [], [], [], []
+    for k, (x, (_, ch, strand)) in enumerate(zip(xyz, pieces)):
+        flat = x.reshape(-1, 3)
+        at = np.array([k % cols, k // cols, 0.0]) * cell + cell / 2
+        pos.append(flat - (flat.max(0) + flat.min(0)) / 2 + at)
+        r = x.shape[0]
+        num = np.arange(1, r + 1)
+        if strand:
+            num[strand:] += gap
+        names += ["N", "CA", "C", "O"] * r
+        resnum.append(np.repeat(num, 4))
+        chain += [ch] * (4 * r)
+    pos = np.concatenate(pos)
+    box = float(np.ceil(np.ptp(pos, 0).max() + 2.0)) if box is None else float(box)
+    pos += box / 2 - (pos.max(0) + pos.min(0)) / 2
+    if pos.min() <= 0 or pos.max() >= box:
+        raise ValueError(f"the backbones do not fit a {box} nm box")
+    names = np.asarray(names)
+    chain = np.asarray(chain)
+    groups = {"Backbone": np.arange(len(names))}
+    for ch in dict.fromkeys(chain.tolist()):
+        groups[f"chain{ch}"] = np.flatnonzero(chain == ch)
+    return {"name": "ideal backbones", "positions": pos.astype(np.float32),
+            "box": np.full(3, box, np.float32),
+            "mass": np.asarray([_BACKBONE_MASS[a] for a in names], np.float32),
+            "has_mass": np.ones(len(names), bool), "precision": 10000,
+            "atomname": names, "resname": np.full(len(names), "ALA"),
+            "resnum": np.concatenate(resnum), "chain": chain, "groups": groups}
+
+
+# ------------------------------------------------- float64 oracles (models)
+
+def host_prepared(p, box, w):
+    """`calc_rmsd`'s preparation of one frame in float64: the group shifted
+    so its refined COM sits at the box centre, wrapped, and taken relative
+    to the box centre -> (coords [K, 3], refined COM [3], distance of each
+    atom's shifted coordinates from the wrap boundary [K]: an atom within
+    float32 reach of it may land a box length away in a float32 run)."""
+    box = np.asarray(box, np.float64)
+    p = np.asarray(p, np.float64)
+    com = host_refined_center(p, box, w)
+    shifted = p + (box / 2 - com)
+    edge = np.abs(shifted - box * np.round(shifted / box)).min(1)
+    return np.mod(shifted, box) - box / 2, com, edge
+
+
+def host_kabsch(pc, qc, w):
+    """Float64 Kabsch of prepared coords (`host_prepared`): SVD of the
+    unweighted covariance with the determinant fix, mass-weighted RMSD ->
+    (rmsd, rotation R with pc @ R.T ~ qc)."""
+    w = np.asarray(w, np.float64)
+    u, _, vt = np.linalg.svd(pc.T @ qc)
+    d = np.sign(np.linalg.det(vt.T @ u.T))
+    rot = vt.T @ np.diag([1.0, 1.0, d]) @ u.T
+    dev = pc @ rot.T - qc
+    return float(np.sqrt((w * (dev * dev).sum(1)).sum() / w.sum())), rot
+
+
+def host_residue_min(p, box, blocks, rows=None, chunk: int = 64):
+    """Float64 smallest minimum-image distance between atom blocks of one
+    frame (`p` [K, 3]; `blocks` index arrays, of any lengths) -> [R, R],
+    or [len(rows), R] for the row blocks `rows` (default `blocks`)."""
+    p = np.asarray(p, np.float64)
+    box = np.asarray(box, np.float64)
+
+    def table(bl):   # padded with each block's first atom, which adds nothing
+        width = max(len(b) for b in bl)
+        return p[np.asarray([np.concatenate([b, np.repeat(b[:1], width - len(b))])
+                             for b in map(np.asarray, bl)])]
+
+    g = table(blocks)                                         # [R, P, 3]
+    gr = g if rows is None else table(rows)
+    out = np.empty((gr.shape[0], g.shape[0]))
+    for i in range(0, gr.shape[0], chunk):
+        d = gr[i:i + chunk, None, :, None, :] - g[None, :, None, :, :]
+        d -= box * np.round(d / box)
+        out[i:i + chunk] = np.sqrt(np.einsum("...k,...k->...", d, d).min((-2, -1)))
+    return out
+
+
+def host_entropy(lam, temperature: float):
+    """Schlitter and quasi-harmonic entropies, kJ/(mol K), of mass-weighted
+    covariance eigenvalues `lam` (amu nm^2), float64, the formulas of
+    `models.entropy`'s docstring -> (schlitter, quasiharmonic)."""
+    kb, hbar, r_gas = 1.380649e-23, 1.0545718176e-34, 8.31446261815324e-3
+    lam = np.clip(np.asarray(lam, np.float64), 0.0, None) * 1.66053906660e-45
+    kbt = kb * temperature
+    schlitter = 0.5 * r_gas * np.log1p(kbt * lam * np.e ** 2 / hbar ** 2).sum()
+    a = hbar / np.sqrt(kbt * lam[lam > 0])
+    with np.errstate(over="ignore"):
+        qh = r_gas * (a / np.expm1(a) - np.log1p(-np.exp(-a))).sum()
+    return float(schlitter), float(qh)
+
+
+def host_clusters(matrix, method: str, cutoff: float, jp_m: int = 10, jp_p: int = 3):
+    """Cluster labels of an RMSD matrix by the `gmx cluster` rules, written
+    out frame by frame: 'gromos' (repeatedly the frame with the most
+    unassigned neighbours within `cutoff`, itself included, lowest index on
+    ties, takes them), 'linkage' (connected components of d < cutoff) and
+    'jarvis-patrick' (mutual members of each other's `jp_m` nearest lists
+    sharing at least `jp_p`); clusters numbered largest first, then by
+    their first frame -> labels [F]."""
+    m = np.asarray(matrix)
+    f = m.shape[0]
+    labels = np.full(f, -1, np.int64)
+    if method == "gromos":
+        near = [set(np.flatnonzero(m[i] < cutoff)) | {i} for i in range(f)]
+        left, k = set(range(f)), 0
+        while left:
+            best = max(sorted(left), key=lambda i: (len(near[i] & left), -i))
+            for j in near[best] & left:
+                labels[j] = k
+            left -= near[best]
+            k += 1
+        return labels
+    if method == "linkage":
+        edge = lambda i, j: i != j and m[i, j] < cutoff  # noqa: E731
+    else:
+        nn = [set(sorted(set(range(f)) - {i}, key=lambda j: (m[i, j], j))[:jp_m])
+              for i in range(f)]
+        edge = lambda i, j: (i != j and j in nn[i] and i in nn[j]  # noqa: E731
+                             and len(nn[i] & nn[j]) >= jp_p)
+    comps = []
+    for i in range(f):
+        if labels[i] >= 0:
+            continue
+        labels[i] = len(comps)
+        stack, members = [i], [i]
+        while stack:
+            a = stack.pop()
+            for b in range(f):
+                if labels[b] < 0 and (edge(a, b) or edge(b, a)):
+                    labels[b] = len(comps)
+                    stack.append(b)
+                    members.append(b)
+        comps.append(members)
+    order = sorted(range(len(comps)), key=lambda c: (-len(comps[c]), min(comps[c])))
+    rank = np.empty(len(comps), np.int64)
+    rank[order] = np.arange(len(comps))
+    return rank[labels]
+
+
+def host_covariance_eigh(x, sw=None):
+    """Float64 eigenvalues (descending) of the covariance of fitted frames
+    `x` [F, K, 3], deviations scaled by `sw` [K] (sqrt masses)."""
+    x = np.asarray(x, np.float64)
+    d = x - x.mean(0)
+    if sw is not None:
+        d = d * np.asarray(sw, np.float64)[None, :, None]
+    d = d.reshape(x.shape[0], -1)
+    return np.linalg.eigvalsh(d.T @ d / x.shape[0])[::-1]
+
+
+def host_dssp_energy(n, ca, c, o, box, donor_ok, rows=None, cols=None):
+    """Float64 Kabsch-Sander energies of one frame ([R, 3] nm per atom
+    kind, orthorhombic `box`): `e[j, i]` donor NH(j) -> acceptor CO(i)
+    kcal/mol for donors `rows` and acceptors `cols` (default all), with
+    the amide H estimated from the previous residue's C and O; +inf for
+    |i - j| < 2 and donors that are not `donor_ok`."""
+    n, c, o = (np.asarray(x, np.float64) for x in (n, c, o))
+    box = np.asarray(box, np.float64)
+    r = n.shape[0]
+    rows = np.arange(r) if rows is None else np.asarray(rows)
+    cols = np.arange(r) if cols is None else np.asarray(cols)
+
+    def mi(d):
+        return d - box * np.round(d / box)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    h = n.copy()
+    h[1:] = n[1:] + 0.101 * unit(unit(mi(n[1:] - c[:-1])) + unit(mi(n[1:] - o[:-1])))
+
+    e = np.zeros((rows.shape[0], cols.shape[0]))
+    pairs = ((n, o, 1.0), (h, c, 1.0), (h, o, -1.0), (n, c, -1.0))
+    planes = [np.ascontiguousarray(b[cols].T) for _, b, _ in pairs]   # [3, cols]
+    for k in range(0, rows.shape[0], 256):
+        rk = rows[k:k + 256]
+        for (a, _, sign), bt in zip(pairs, planes):
+            d2 = np.zeros((rk.shape[0], cols.shape[0]))
+            for ax in range(3):                   # minimum image axis by axis
+                d = a[rk, ax][:, None] - bt[ax][None]
+                q = d / box[ax]
+                np.rint(q, out=q)
+                q *= box[ax]
+                d -= q
+                d *= d
+                d2 += d
+            e[k:k + 256] += sign / (10.0 * np.sqrt(d2))
+    e *= 0.084 * 332.0
+    bad = (np.abs(rows[:, None] - cols[None]) < 2) | ~np.asarray(donor_ok)[rows][:, None]
+    return np.where(bad, np.inf, e)
+
+
+def host_dssp_codes(hb, consec, states: int = 3, ca=None, box=None, residues=None):
+    """Kabsch-Sander codes of one frame from its hydrogen-bond matrix
+    `hb[j, i]` (donor NH(j) -> acceptor CO(i) below the cutoff) in numpy:
+    3-state H/E/- or 8-state H/G/I/E/B/T/S/- (bends from `ca` [R, 3] in an
+    orthorhombic `box`, float64), the rules of the JAX package's
+    `ops/dssp.py` written out per residue pair -> [R] str, or the codes of
+    `residues` (lo, hi) alone, which read `hb` only in rows and columns
+    lo - 8 .. hi + 8 (bridges with any residue, turns up to 5 apart)."""
+    hb = np.asarray(hb, bool)
+    r = hb.shape[0]
+    lo, hi = (0, r) if residues is None else residues
+    kp = np.zeros((r + 2, r + 2), bool)
+    kp[1:-1, 1:-1] = hb.T                             # kp[i+1, j+1] = Hbond(i, j)
+    consec = np.asarray(consec, bool)
+    bad = np.concatenate([[0], np.cumsum(~consec)])
+    rows = np.arange(max(0, lo - 2), min(r, hi + 2))  # bridges of these residues
+
+    def hbond(di, dj):                                # [i in rows, j] -> Hbond(i+di, j+dj)
+        return kp[rows + 1 + di][:, 1 + dj:1 + dj + r]
+
+    def hbond_t(di, dj):                              # [i in rows, j] -> Hbond(j+di, i+dj)
+        return kp[1 + di:1 + di + r][:, rows + 1 + dj].T
+
+    def helix(k):                                     # (minimal k-helices, k-turns) [R]
+        m = max(0, r - k)
+        turn = np.zeros(r, bool)
+        turn[:m] = np.diagonal(kp[1:-1, 1:-1], k)[:m] & (bad[k:k + m] == bad[:m])
+        span = np.zeros(r, bool)
+        for i in np.flatnonzero(turn[:-1] & turn[1:]):
+            span[i + 2:i + 2 + k] = True
+        return span, turn
+
+    far = np.abs(rows[:, None] - np.arange(r)[None]) >= 3
+    par = ((hbond(-1, 0) & hbond_t(0, 1)) | (hbond_t(-1, 0) & hbond(0, 1))) & far
+    anti = ((hbond(0, 0) & hbond_t(0, 0)) | (hbond(-1, 1) & hbond_t(-1, 1))) & far
+    ss = np.full(r, "-", "U1")
+    out = slice(lo, hi)
+    if states == 3:
+        for k in (3, 4, 5):
+            ss[helix(k)[0]] = "H"
+        ss[rows[(par | anti).any(1)]] = "E"
+        return ss[out] if residues is not None else ss
+
+    def continued(b, anti_):                          # bridge with an adjacent one
+        bp = np.zeros((b.shape[0] + 2, r + 2), bool)  # rows are consecutive residues
+        bp[1:-1, 1:-1] = b
+        m = b.shape[0]
+        if anti_:                                     # (i-1, j+1) or (i+1, j-1)
+            adj = bp[0:m, 2:r + 2] | bp[2:m + 2, 0:r]
+        else:                                         # (i-1, j-1) or (i+1, j+1)
+            adj = bp[0:m, 0:r] | bp[2:m + 2, 2:r + 2]
+        return b & adj
+
+    strand = np.zeros(r, bool)
+    strand[rows] = (continued(par, False) | continued(anti, True)).any(1)
+    bridged = np.zeros(r, bool)
+    bridged[rows] = (par | anti).any(1)
+    isolated = bridged & ~strand
+    spans = {k: helix(k) for k in (3, 4, 5)}
+    inside = np.zeros(r, bool)
+    for k, (_, turn) in spans.items():
+        for i in np.flatnonzero(turn):
+            inside[i + 1:i + k] = True
+    bend = np.zeros(r, bool)
+    if ca is not None and r >= 5:
+        x = np.asarray(ca, np.float64)
+        bx = np.asarray(box, np.float64)
+        u = x[2:] - x[:-2]
+        u -= bx * np.round(u / bx)
+        v1, v2 = u[:-2], u[2:]                        # at residue i: i-2 -> i -> i+2
+        cosk = (v1 * v2).sum(1) / np.maximum(
+            np.linalg.norm(v1, axis=1) * np.linalg.norm(v2, axis=1), 1e-12)
+        ok = bad[4:r] == bad[:r - 4]                  # residues i-2 .. i+2 consecutive
+        bend[2:r - 2] = (np.degrees(np.arccos(np.clip(cosk, -1, 1))) > 70.0) & ok
+    for mask, code in ((bend, "S"), (inside, "T"), (spans[5][0], "I"),
+                       (spans[3][0], "G"), (isolated, "B"), (strand, "E"),
+                       (spans[4][0], "H")):
+        ss[mask] = code
+    return ss[out] if residues is not None else ss

@@ -15,8 +15,9 @@ def jax_system(state: dict):
     """A `groan_rs_tpu` System built from a port state dict (as
     `bench.py:160-179` builds its System: masses and groups; a `(3, 3)`
     box through `SimBox.from_matrix`), with the
-    optional charges, bonds, element symbols and atom names set through
-    the JAX `Topology`'s own columns and setters."""
+    optional charges, bonds, element symbols, atom names, residue numbers,
+    residue names and chains set through the JAX `Topology`'s own columns
+    and setters (no `resnum`: residues of three atoms, numbered from 1)."""
     from groan_rs_tpu.core.simbox import SimBox
     from groan_rs_tpu.core.topology import StrColumn, Topology
     from groan_rs_tpu.system import System
@@ -27,14 +28,17 @@ def jax_system(state: dict):
     topo.mass = np.asarray(state["mass"], np.float32).copy()
     topo.has_mass = np.asarray(state["has_mass"], bool).copy()
     topo.atomnum = np.arange(1, n + 1, dtype=np.int64)
-    topo.resnum = np.arange(n, dtype=np.int64) // 3 + 1
+    topo.resnum = (np.arange(n, dtype=np.int64) // 3 + 1
+                   if state.get("resnum") is None
+                   else np.asarray(state["resnum"], np.int64).copy())
     if state.get("charge") is not None:
         topo.charge = np.asarray(state["charge"], np.float32).copy()
         topo.has_charge = np.asarray(state["has_charge"], bool).copy()
     if state.get("element") is not None:
         topo.element_symbol = StrColumn(values=np.asarray(state["element"], str))
-    if state.get("atomname") is not None:
-        topo.atomname = StrColumn(values=np.asarray(state["atomname"], str))
+    for key in ("atomname", "resname", "chain"):
+        if state.get(key) is not None:
+            setattr(topo, key, StrColumn(values=np.asarray(state[key], str)))
     if state.get("bonds") is not None:
         topo.set_bonds_from_pairs(np.asarray(state["bonds"], np.int64))
     box = np.asarray(state["box"], np.float32)
@@ -59,8 +63,9 @@ def _strs(col):
 
 def state_from_jax_system(system, groups) -> dict:
     """The state dict (`groan_rs_tpu_torch.convert`) of a `groan_rs_tpu`
-    System, carrying the named groups, charges, bonds, element symbols
-    and atom names; a triclinic box as its `(3, 3)` matrix."""
+    System, carrying the named groups, charges, bonds, element symbols,
+    atom names and the residue columns; a triclinic box as its `(3, 3)`
+    matrix."""
     topo = system.topology
     box = system.get_box()
     pairs = [(i, j) for i, nb in enumerate(topo.bonded) for j in nb if i <= j]
@@ -76,6 +81,9 @@ def state_from_jax_system(system, groups) -> dict:
         "bonds": np.asarray(pairs, np.int64).reshape(-1, 2),
         "element": _strs(topo.element_symbol),
         "atomname": _strs(topo.atomname),
+        "resnum": np.asarray(topo.resnum, np.int64),
+        "resname": _strs(topo.resname),
+        "chain": _strs(topo.chain),
         "precision": int(system.precision),
         "groups": {g: np.asarray(system.group_indices(g)) for g in groups},
     }
@@ -92,19 +100,52 @@ def n(x):
 
 
 def synthetic_pair(path, n_atoms: int = 3000, n_frames: int = 12,
-                   groups=("Protein", "Membrane", "Peptide", "Water")):
+                   groups=("Protein", "Membrane", "Peptide", "Water"),
+                   named: bool = False, triclinic: bool = False):
     """(XTC path, JAX System, port System on the CPU) of the synthetic
     layout with the full topology (charges, bonds, elements, names) at
-    frame 0 of a trajectory written to `path`; the port System carries the
-    JAX one's residue numbers too."""
+    frame 0 of a trajectory written to `path`; the state carries the JAX
+    System's residue numbers to the port System.  `named=True` gives the
+    atoms the residue and atom names of `testing.named_layout` (protein
+    residues N H CA HA CB HB1 HB2 C O HB3); `triclinic=True` writes the
+    rhombic-dodecahedron trajectory (`testing.build_trajectory_triclinic`)."""
     from groan_rs_tpu_torch import convert, testing
     from groan_rs_tpu_torch.io import native
 
-    testing.build_trajectory(str(path), n_atoms, n_frames)
+    build = testing.build_trajectory_triclinic if triclinic else testing.build_trajectory
+    build(str(path), n_atoms, n_frames)
     offs, _, _, nat = native.xtc_scan(str(path))
     c0, b9, *_ = native.xtc_read_frames(str(path), offs[:1], nat)
-    jsys = jax_system(testing.synthetic_state(c0[0], b9[0][[0, 4, 8]], topology="full"))
+    box = b9[0].reshape(3, 3) if triclinic else b9[0][[0, 4, 8]]
+    state = testing.synthetic_state(c0[0], box, topology="full")
+    if named:
+        names = testing.named_layout(n_atoms)
+        state.update({k: names[k] for k in ("resnum", "resname", "atomname")})
+    jsys = jax_system(state)
     tsys = convert.system_from_state(state_from_jax_system(jsys, groups), device="cpu")
-    tsys.topology.resnum = jsys.topology.resnum.copy()
     tsys.topology.atomnum = jsys.topology.atomnum.copy()
     return str(path), jsys, tsys
+
+
+def raised(fn):
+    """(exception class name, its `code`) of what `fn()` raises, or None."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the class is what is compared
+        return type(e).__name__, getattr(e, "code", None)
+    return None
+
+
+def named_pairs(tmp_path_factory, n_frames: int = 12):
+    """{"ortho": ..., "triclinic": ...} of `synthetic_pair(named=True)`
+    triples at 3,000 atoms, each System with the group CA (the protein's
+    30 alpha carbons)."""
+    out = {}
+    for form in ("ortho", "triclinic"):
+        path = tmp_path_factory.mktemp(form) / "named.xtc"
+        xtc, js, ts = synthetic_pair(path, n_frames=n_frames, named=True,
+                                     triclinic=form == "triclinic")
+        for s in (js, ts):
+            s.group_create("CA", "Protein and name CA")
+        out[form] = (xtc, js, ts)
+    return out
