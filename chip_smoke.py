@@ -146,6 +146,32 @@ Phases, each of which raises on failure (the run then exits non-zero):
    launch as predicted (K3 never); `rmsf` and `rmsd_matrix` on 4 frames
    equal between the kernel path and the twin path (CPU tensors) within
    1e-4.  Its launches join the kernels' line.
+14. The time-correlation and transport analyses (`models/dynamics.py`), 1M
+   atoms, each from its file name: phase 7's full synthetic topology (the
+   layout's own bonds) over phase 4's 48 frames and a 24-frame TRR of all
+   atoms (phase 4's frames 0-23, seeded AR(1) velocities,
+   `testing.ar1_velocities`). `msd` and `diffusion` (xyz, xy) of the
+   200,334 water oxygens, `msd_mol` (xy) of the 6,000 lipids, `vanhove`
+   of the 601,000 water atoms (lags 1-47, 2 nm, 100 shells), `rotacf` P1
+   and P2 of the 200,333 OW -> HW1 vectors, `current` of all atoms,
+   `vacf` (plain and mass-weighted), `dos` and `tcaf` (n_k 4) of the
+   water from the TRR, `dipole_corr` total and per molecule,
+   `hbond_acf` / `hbond_lifetime` of phase 11's 7,000-water chain, and
+   `filter_traj` of the Protein (window 5, plain and wrapped, XTC).
+   Against float64 host oracles (`testing.py`): curves within 1e-4 of
+   their largest value, D, T, dof and the DOS spectrum within relative
+   1e-4, TCAF curves within 1e-4 and nu, eta_k, eta0 within relative 1e-3,
+   dipole ACFs within 1e-4 of corr[0]; `current`'s mj2 and conductivity
+   within `testing.current_bound` (float32 rounding of the 1M-atom sum);
+   Van Hove counts int64, summing to (F - lag) x 601,000 at every lag and
+   equal to float64's on lags 1, 2, 23 and 47 but for norms within 1e-6
+   nm of a shell edge; hydrogen bonds of frames 0 and 47 equal the host
+   emulation's, the intermittent ACF equal between the two entry points;
+   filtered frames read back within half of 1/precision and two ulps.
+   `msd` and `vacf` over a `load_device(ship="all")` window and a
+   `runner(group=...)` window equal the file calls bit for bit, and a
+   window without the group raises `ParallelError`; `msd_mol` and
+   `vanhove` repeat bit for bit.  K1, K2 and K3 never launch (predicted 0).
 
 Phase 7 also prints the worst of the 1M-atom dihedral sites: its error,
 central bond, bend angles, lever arm, whether it crosses the box, and
@@ -2436,6 +2462,336 @@ def structure_phase(torch, xtc, offs, nat, box, system, dev):
     return counts
 
 
+DYN_TRR_FRAMES = 24       # frames of the velocity TRR (phase 4's first 24 positions)
+VANHOVE_ORACLE_LAGS = (1, 2, 23, 47)   # lags whose counts the float64 oracle recounts
+
+
+def _dyn_close(got, want, what, rel=1e-4):
+    """A curve within `rel` of its largest float64 value."""
+    e = _rel(got, want)
+    check(np.shape(got) == np.shape(want) and np.isfinite(got).all() and e <= rel,
+          f"{what} within {rel:g} of the float64 oracle's largest value ({e:.2e})")
+
+
+def _dyn_value(got, want, what, rel=1e-4):
+    e = float(np.max(np.abs(np.asarray(got, np.float64) - want) / np.abs(want)))
+    check(e <= rel, f"{what} within relative {rel:g} of float64 ({e:.2e}; "
+          f"{np.ravel(got)[:4].tolist()})")
+
+
+def dynamics_phase(torch, xtc, offs, nat, frame0, box, dev):
+    """Phase 14: the time-correlation and transport analyses of
+    `models/dynamics.py` over phase 4's XTC and a 24-frame TRR -> the
+    K1/K2/K3 launches of its main path (predicted 0)."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.core.simbox import SimBox
+    from groan_rs_tpu_torch.errors import ParallelError
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.models import dynamics as D
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.system.hbonds import HBondAnalysis, HBondChain
+
+    say(f"phase 14: time-correlation and transport analyses, {nat} atoms x {N_FRAMES} frames")
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    lay = testing.synthetic_layout(nat)
+    w0 = lay["w0"]
+    state = testing.synthetic_state(frame0.copy(), box, topology="full")
+    system = convert.system_from_state(state, device=dev)
+    system.group_create("OW", "name OW")
+    oxy = lay["water_oxygens"]
+    pairs = np.stack([oxy + 1, oxy], 1)[oxy + 1 < nat]          # OW -> HW1
+    n_dense = min(DENSE_WATERS, len(oxy) - 1)
+    span = f"serial {w0 + 1} to {w0 + 3 * n_dense}"
+    chain = [HBondChain(f"name OW and {span}", f"name OW and {span}",
+                        f"name HW1 HW2 and {span}")]
+
+    # ---- the TRR: phase 4's first positions, AR(1) velocities -------------
+    t0 = time.perf_counter()
+    n_trr = min(DYN_TRR_FRAMES, N_FRAMES)
+    coords, b9s, steps, times = native.xtc_read_frames(xtc, offs[:N_FRAMES], nat)[:4]
+    boxes = b9s[:, [0, 4, 8]].astype(np.float64)
+    vel = testing.ar1_velocities(n_trr, nat, seed=29)
+    trr = os.path.join(K.BUILD_DIR, f"smoke_dyn_{nat}_{n_trr}.trr")
+    testing.write_trr(trr, coords[:n_trr], b9s[:n_trr], times[:n_trr], steps[:n_trr], vel)
+    say(f"  TRR of {n_trr} frames (AR(1) velocities, phi 0.9, 0.3 nm/ps) written in "
+        f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(trr) / 1e6:.0f} MB)")
+    paths = {w: os.path.join(K.BUILD_DIR, f"smoke_filter_{w}.xtc") for w in ("plain", "wrap")}
+    for path in paths.values():
+        if os.path.exists(path):
+            os.unlink(path)
+
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    # ---- the phase's main path: what a user calls, from the file names -----
+    K.reset_launch_counts()
+    t_main = time.perf_counter()
+    lt, msd_xyz = timed("msd OW xyz", lambda: M.msd(system, xtc, "OW", batch_size=BATCH))
+    dif = {d: timed(f"diffusion OW {d}", lambda d=d: M.diffusion(
+        system, xtc, "OW", dims=d, batch_size=BATCH)) for d in ("xyz", "xy")}
+    mol = timed("msd_mol Membrane xy", lambda: M.msd_mol(system, xtc, "Membrane", dims="xy",
+                                                        batch_size=BATCH))
+    vh = timed("vanhove Water", lambda: M.vanhove(system, xtc, "Water", lags=range(1, N_FRAMES),
+                                                  r_max=2.0, bins=100, batch_size=BATCH))
+    rot = {o: timed(f"rotacf P{o}", lambda o=o: M.rotacf(system, xtc, pairs, order=o,
+                                                        batch_size=BATCH)[1]) for o in (1, 2)}
+    cur = timed("current all", lambda: M.current(system, xtc, "all", temperature=300.0,
+                                                 fit_range=(0.1, 0.5), batch_size=BATCH))
+    vac = {m: timed(f"vacf Water mass_weighted={m}", lambda m=m: M.vacf(
+        system, trr, "Water", mass_weighted=m, batch_size=BATCH)[1]) for m in (False, True)}
+    ds = timed("dos Water", lambda: M.dos(system, trr, "Water", batch_size=BATCH))
+    tc = timed("tcaf Water", lambda: M.tcaf(system, trr, "Water", n_k=4, batch_size=BATCH))
+    dip = {m: timed(f"dipole_corr {m}", lambda m=m: M.dipole_corr(
+        system, xtc, "Water", mode=m, batch_size=BATCH)) for m in ("total", "mol")}
+    hb_acf = timed("hbond_acf", lambda: M.hbond_acf(system, xtc, chain, [(0, 0)],
+                                                    batch_size=BATCH)[1])
+    hb_life = timed("hbond_lifetime", lambda: M.hbond_lifetime(system, xtc, chain, [(0, 0)],
+                                                               batch_size=BATCH))
+    for w, path in paths.items():
+        n_w = timed(f"filter_traj Protein ({w})", lambda w=w, path=path: M.filter_traj(
+            system, xtc, path, window=5, group="Protein", wrap=w == "wrap",
+            batch_size=BATCH))
+        check(n_w == N_FRAMES, f"filter_traj ({w}) wrote {n_w} frames")
+    t_main = time.perf_counter() - t_main
+    counts = dict(K.launch_counts)
+    say("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    say(f"  the phase's main path: {t_main:.2f} s")
+    if cuda:
+        say(f"  max_memory_allocated over the main path: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    # no function of the family computes a centre or a pair reduction
+    predicted = {"bai_breen_estimate": 0, "bai_breen_refine": 0, "pair_reduce": 0}
+    say(f"  launches {counts}, predicted {predicted}")
+    check(counts == predicted, "K1, K2 and K3 launched as the code predicts")
+
+    # ---- against float64 oracles --------------------------------------------
+    # the oracles are independent numpy work that releases the GIL in its
+    # large array operations: four threads compute them while the checks
+    # below read them in order (and the hydrogen-bond pass uses the card)
+    t_or = time.perf_counter()
+    lags = np.arange(N_FRAMES)
+    ow, mem, wat, p = (system.group_indices(g) for g in ("OW", "Membrane", "Water", "Protein"))
+    k_w = len(wat)
+    olags = [x for x in VANHOVE_ORACLE_LAGS if x < N_FRAMES]
+    q = system.topology.charge.astype(np.float64)
+    m_w = system.topology.mass[wat].astype(np.float64)
+    t_trr = times[:n_trr] - times[0]
+    oracle_secs = {}
+
+    def current_oracle():
+        u_all = testing.host_unwrap(coords, boxes)
+        return testing.host_dipole_paths(u_all, q), float(np.abs(u_all).max())
+
+    def dipole_oracle():
+        tot, mu = testing.host_molecular_dipoles(
+            coords[:, wat], boxes, system.topology.molecule_ids()[wat],
+            system.topology.mass[wat], system.topology.charge[wat])
+        return testing.host_lag_corr(tot[:, None, :], lags), testing.host_lag_corr(mu, lags), \
+            mu.shape[1]
+
+    jobs = {
+        "msd, diffusion": lambda: testing.host_msd_axes(
+            testing.host_unwrap(coords[:, ow], boxes), lags),
+        "msd_mol": lambda: testing.host_msd(testing.host_com_paths(
+            testing.host_unwrap(coords[:, mem], boxes), system.topology.molecule_ids()[mem],
+            system.topology.mass[mem]), lags, (0, 1), per_entity=True),
+        "vanhove": lambda: testing.host_vanhove(
+            testing.host_unwrap(coords[:, wat], boxes), olags, 2.0, 100),
+        "rotacf": lambda: testing.host_lag_corrs(testing.host_unit_vectors(
+            coords[:, pairs[:, 0]], coords[:, pairs[:, 1]], boxes), lags,
+            [(None, 1), (None, 2)]),
+        "current": current_oracle,
+        "vacf, dos": lambda: testing.host_lag_corrs(vel[:, wat], np.arange(n_trr),
+                                                    [(None, 1), (m_w, 1)]),
+        "tcaf": lambda: testing.host_tcaf(coords[:n_trr, wat], vel[:, wat], m_w, boxes[0], 4,
+                                          0.3, float(t_trr[1])),
+        "dipole_corr": dipole_oracle,
+        "filter_traj": lambda: testing.host_filtered(
+            testing.host_unwrap(coords[:, p], boxes), 5),
+    }
+
+    def timed_job(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        oracle_secs[name] = time.perf_counter() - t
+        return out
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        fut = {k: pool.submit(timed_job, k, fn) for k, fn in jobs.items()}
+
+        per_axis = fut["msd, diffusion"].result()
+        check(np.array_equal(lt, times - times[0]), "msd lag times are the frames' times")
+        _dyn_close(msd_xyz, per_axis.sum(1), f"msd of the {len(ow)} water oxygens (48 lags)")
+        for d, axes in (("xyz", (0, 1, 2)), ("xy", (0, 1))):
+            curve = per_axis[:, axes].sum(1)
+            _dyn_close(dif[d]["msd"], curve, f"diffusion {d}: the MSD")
+            slope = testing.host_fit(lt, curve, 0.1, 0.9)[0]
+            _dyn_value(dif[d]["D"], slope / (2 * len(axes)) * 1e-2,
+                       f"diffusion {d}: D (cm^2/s)")
+
+        want = fut["msd_mol"].result()
+        check(mol["n_molecules"] == -(-len(mem) // testing.LIPID_SIZE),
+              f"msd_mol: {mol['n_molecules']} lipids")
+        _dyn_close(mol["msd"], want, "msd_mol: the lipids' lateral COM curves")
+        d64 = testing.host_fit(lt, want, 0.1, 0.9)[0] / 4 * 1e-2
+        e = float(np.abs(mol["D"] - d64).max() / np.abs(d64).max())
+        check(e <= 1e-4, f"msd_mol: the {len(d64)} lateral D within 1e-4 of the largest "
+              f"float64 D ({e:.2e}; mean {mol['D_mean']:.4e} cm^2/s)")
+
+        total = vh["counts"].sum(1) + np.rint(vh["overflow"] * (N_FRAMES - vh["lags"]) * k_w)
+        check(vh["counts"].dtype == np.int64
+              and np.array_equal(total, (N_FRAMES - vh["lags"]) * k_w),
+              f"vanhove: the int64 counts of every lag sum to (F - lag) x {k_w} exactly")
+        big = int(vh["counts"].max())
+        say(f"  vanhove: the fullest shell holds {big} displacements "
+            f"({'above' if big > 2 ** 24 else 'below'} 2^24 = {2 ** 24}), at lag "
+            f"{int(vh['lags'][np.argmax(vh['counts'].max(1))])}")
+        host, edge = fut["vanhove"].result()
+        rows = np.searchsorted(vh["lags"], olags)
+        got = np.concatenate([vh["counts"][rows], np.rint(
+            vh["overflow"][rows] * (N_FRAMES - np.asarray(olags)) * k_w)[:, None]], 1)
+        moved = np.abs(got - host).sum(1) // 2
+        check((moved <= edge).all(),
+              f"vanhove lags {olags}: counts equal float64's but for {moved.tolist()} "
+              f"displacements, of {edge.tolist()} within 1e-6 nm of a shell edge")
+
+        for o, want in zip((1, 2), fut["rotacf"].result()):
+            _dyn_close(rot[o], want, f"rotacf P{o} of the {len(pairs)} OW -> HW1 vectors")
+
+        mj, u_max = fut["current"].result()
+        want = np.array([((mj[lag:] - mj[:N_FRAMES - lag]) ** 2).sum(1).mean() for lag in lags])
+        bound = testing.current_bound(q, u_max, want)
+        err = np.abs(cur["mj2"] - want)
+        check((err[1:] <= bound[1:]).all(),
+              f"current: mj2 within testing.current_bound at every lag >= 1 (largest error "
+              f"{(err[1:] / want[1:]).max():.2e} relative, the bound's "
+              f"{(bound[1:] / want[1:]).min():.2e}-{(bound[1:] / want[1:]).max():.2e}; u_max "
+              f"{u_max:.2f} nm)")
+        slope, _, mask = testing.host_fit(lt, want, 0.1, 0.5, positive=True)
+        pinv = np.linalg.pinv(np.stack([lt[mask], np.ones(int(mask.sum()))], 1))
+        slope_bound = float(np.abs(pinv[0]) @ bound[mask])
+        e = abs(cur["slope"] - slope) / abs(slope)
+        check(e <= slope_bound / abs(slope),
+              f"current: conductivity {cur['conductivity']:.6e} S/m within the bound's "
+              f"relative {slope_bound / abs(slope):.2e} of float64 ({e:.2e}; net charge "
+              f"{cur['net_charge']:.2e} e)")
+        say(f"  current: mj2 error / bound, largest {(err[1:] / bound[1:]).max():.3f}")
+
+        c_u, c_m = fut["vacf, dos"].result()
+        _dyn_close(vac[False], c_u, "vacf Water")
+        _dyn_close(vac[True], c_m, "vacf Water, mass-weighted")
+        hd = testing.host_dos(c_m, c_u, t_trr, float(m_w.sum()), k_w)
+        for key in ("T", "dof"):
+            _dyn_value(ds[key], hd[key], f"dos {key}")
+        _dyn_close(ds["dos"], hd["dos"], "dos spectrum")
+        check(abs(ds["dof"] - 3 * k_w) <= 1e-6 * 3 * k_w,
+              f"dos: the spectrum integrates to 3N = {3 * k_w} ({ds['dof']:.3f})")
+
+        ht = fut["tcaf"].result()
+        margin = min(np.abs(row[:s + 1] - 0.3).min() for row, s in zip(ht["tcaf"], ht["stops"]))
+        if margin < 1e-4:          # a point at the floor: fit over the card's prefix
+            good = tc["tcaf"] > 0.3
+            stops = [max(int(np.argmin(g)) if not g.all() else n_trr, 3) for g in good]
+            ht = testing.host_tcaf(coords[:n_trr, wat], vel[:, wat], m_w, boxes[0], 4, 0.3,
+                                   float(t_trr[1]), prefix=stops)
+        e = float(np.abs(tc["tcaf"] - ht["tcaf"]).max())
+        check(e <= 1e-4, f"tcaf: the normalised curves within 1e-4 of float64 ({e:.2e}; fit "
+              f"prefixes {ht['stops']}, the nearest point {margin:.3f} from the floor)")
+        for key in ("nu", "eta_k", "eta0"):
+            _dyn_value(tc[key], ht[key], f"tcaf {key}", rel=1e-3)
+
+        want_tot, want_mol, n_mol = fut["dipole_corr"].result()
+        e = float(np.abs(dip["total"]["corr"] - want_tot).max() / abs(want_tot[0]))
+        check(e <= 1e-4, f"dipole_corr total within 1e-4 of corr[0] ({e:.2e})")
+        e = float(np.abs(dip["mol"]["corr"] - want_mol).max() / abs(want_mol[0]))
+        check(e <= 1e-4, f"dipole_corr mol over {n_mol} molecules within 1e-4 of corr[0] "
+              f"({e:.2e}; corr_time {dip['mol']['corr_time']:.3f} ps)")
+
+        t = time.perf_counter()
+        keys = {}
+        _, h = D._hbond_h_matrix(system, xtc, chain, [(0, 0)], 0.35, 120.0, BATCH,
+                                 "hbond_acf", keys=keys)
+        host_ana = HBondAnalysis(system, chain, [(0, 0)], 0.35, 120.0)
+        frame = system.copy()
+        for f in (0, N_FRAMES - 1):
+            frame.positions[:] = coords[f]
+            frame.set_box(SimBox.from_lengths(*map(float, boxes[f])))
+            bonds = host_ana.analyze(frame)[(0, 0)]
+            want = {((0, 0), b.donor, b.hydrogen, b.acceptor) for b in bonds}
+            got = {k for k, c in keys.items() if h[f, c]}
+            check(got == want, f"hydrogen bonds of frame {f}: the {len(got)} columns present "
+                  "equal the host float32 emulation's bonds")
+        check(np.array_equal(D._hbond_curve(h, False), hb_acf)
+              and np.array_equal(hb_acf, hb_life["intermittent"]),
+              f"hbond_acf (intermittent) equals hbond_lifetime's bit for bit "
+              f"({hb_life['n_bonds_seen']} bonds seen over {N_FRAMES} frames, occupancy "
+              f"{hb_life['occupancy']:.4f}, tau {hb_life['tau_intermittent']:.2f} / "
+              f"{hb_life['tau_continuous']:.2f} ps)")
+        oracle_secs["hbonds (main thread)"] = time.perf_counter() - t
+
+        sm = fut["filter_traj"].result()
+        for w, path in paths.items():
+            o, _, _, n_at = native.xtc_scan(path)
+            back, _, _, _, prec = native.xtc_read_frames(path, o, n_at)
+            d = back - sm
+            if w == "wrap":
+                d = np.stack([testing._mi(d[f], boxes[f]) for f in range(N_FRAMES)])
+            gap = float(np.abs(d).max())
+            tol = 0.5 / float(prec[0]) + 2 * float(np.spacing(np.float32(np.abs(back).max())))
+            check(back.shape == (N_FRAMES, len(p), 3) and gap <= tol,
+                  f"filter_traj ({w}): {N_FRAMES} frames of {len(p)} atoms read back within "
+                  f"half of 1/precision and two ulps of float64 ({gap:.3e} <= {tol:.3e})")
+            os.unlink(path)
+    say(f"  oracles {time.perf_counter() - t_or:.1f} s on 4 threads (each job's own "
+        "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in oracle_secs.items()) + ")")
+
+    # ---- resident windows, determinism ---------------------------------------
+    ta = M.TrajectoryAnalysis(system, device=dev)
+    for label, dt in (("load_device(ship='all')",
+                       ta.runner(ship="all").load_device(xtc, batch_size=BATCH)),
+                      ("runner(group='OW')",
+                       ta.runner(group="OW").load_device(xtc, batch_size=BATCH))):
+        check(np.array_equal(M.msd(system, dt, "OW")[1], msd_xyz),
+              f"msd over {label} equals msd from the file bit for bit")
+        if label.startswith("runner"):
+            try:
+                M.msd(system, dt, "Water")
+                refused = False
+            except ParallelError:
+                refused = True
+            check(refused, "msd of Water over the OW window raises ParallelError")
+        del dt
+    for label, dt in (("load_device(ship='all')",
+                       ta.runner(ship="all", velocities=True).load_device(trr, batch_size=BATCH)),
+                      ("runner(group='Water')",
+                       ta.runner(group="Water", velocities=True).load_device(
+                           trr, batch_size=BATCH))):
+        check(np.array_equal(M.vacf(system, dt, "Water", mass_weighted=True)[1], vac[True]),
+              f"vacf over {label} equals vacf from the TRR bit for bit")
+        del dt
+    again = M.msd_mol(system, xtc, "Membrane", dims="xy", batch_size=BATCH)
+    check(np.array_equal(again["msd"], mol["msd"]), "msd_mol twice: the same bits")
+    again = M.vanhove(system, xtc, "Water", lags=range(1, N_FRAMES), r_max=2.0, bins=100,
+                      batch_size=BATCH)
+    check(np.array_equal(again["counts"], vh["counts"]), "vanhove twice: the same counts")
+    os.unlink(trr)
+    say(f"  phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
+    return counts
+
+
 def main():
     import torch
 
@@ -2606,6 +2962,10 @@ def main():
     del fsys
     t_phase = phase_seconds(13, t_phase)
 
+    # ---- 14. the time-correlation and transport analyses ---------------------
+    dyn_counts = dynamics_phase(torch, xtc, offs, nat, c0[0], box, dev)
+    t_phase = phase_seconds(14, t_phase)
+
     # ---- where the time goes: one profiled pass of each kind -----------
     # the triclinic main path over one batch: phase 9's 12-frame file (the
     # first 12 frames of phase 8's) streamed, and a 12-frame resident window
@@ -2655,7 +3015,7 @@ def main():
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": (counts[k] + file_counts[k] + hb_counts[k] + api_counts[k]
-                      + struct_counts[k]),
+                      + struct_counts[k] + dyn_counts[k]),
          "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
@@ -2666,7 +3026,7 @@ def main():
          "triclinic_launches": tri_counts[k] + tobs_counts[k],
          "main_path_launches": counts[k], "files_launches": file_counts[k],
          "hbonds_launches": hb_counts[k], "system_api_launches": api_counts[k],
-         "structure_launches": struct_counts[k]}
+         "structure_launches": struct_counts[k], "dynamics_launches": dyn_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

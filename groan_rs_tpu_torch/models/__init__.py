@@ -1,5 +1,6 @@
 """Composed analyses: the per-frame analysis pass, the conformational
-analyses of `structure.py` and the per-frame converters of `convert.py`."""
+analyses of `structure.py`, the time-correlation and transport analyses
+of `dynamics.py` and the per-frame converters of `convert.py`."""
 
 from .convert import (
     CenterConverter,
@@ -12,6 +13,21 @@ from .convert import (
     WrapConverter,
     analyze_iter,
     convert_iter,
+)
+from .dynamics import (
+    current,
+    diffusion,
+    dipole_corr,
+    dos,
+    filter_traj,
+    hbond_acf,
+    hbond_lifetime,
+    msd,
+    msd_mol,
+    rotacf,
+    tcaf,
+    vacf,
+    vanhove,
 )
 from .pipeline import PipelineRunner, TrajectoryAnalysis, run_many
 from .structure import (
@@ -40,4 +56,7 @@ __all__ = ["PipelineRunner", "TrajectoryAnalysis", "run_many",
            "WrapConverter", "analyze_iter", "convert_iter",
            "chi", "cluster", "clustsize", "cosine_content", "dccm", "dssp",
            "entropy", "mdmat", "mode_traj", "morph", "pca", "ramachandran",
-           "rmsd_matrix", "rmsdist", "rmsf", "rotmat", "subspace_overlap"]
+           "rmsd_matrix", "rmsdist", "rmsf", "rotmat", "subspace_overlap",
+           "current", "diffusion", "dipole_corr", "dos", "filter_traj",
+           "hbond_acf", "hbond_lifetime", "msd", "msd_mol", "rotacf", "tcaf",
+           "vacf", "vanhove"]

@@ -1246,6 +1246,38 @@ def _resident_group_pos(system, trajectory, group, batch_size,
     return gsel, pos, boxes, dt
 
 
+_BOLTZ = 8.3144626e-3       # Boltzmann constant, kJ / (mol K)
+
+_AMU_NM_PS_TO_PAS = 1.66053906660e-6   # amu/(nm ps) -> Pa s
+
+
+def _unit_tables(system, idx, blocks, loc, *, charges=False):
+    """Padded per-unit site tables (JAX `models/pipeline.py:1738-1759`):
+    `blocks` hold local indices into `idx` (as `_blocks_by_key` returns
+    them), `loc` maps idx order to the shipped group layout.  Returns
+    group-layout columns [U, P], mass weights normalised per unit [U, P],
+    raw charges [U, P] (zero-padded; zeros without `charges`) and the
+    per-unit net charge [U].  Built with array operations (200k water
+    molecules in `dipole_corr`); the tables equal the JAX ones."""
+    from ..system.rmsd import _masses
+
+    sizes = np.fromiter((len(b) for b in blocks), np.int64, len(blocks))
+    flat = np.concatenate([np.asarray(b, np.int64) for b in blocks])
+    row = np.repeat(np.arange(len(blocks)), sizes)
+    col = np.arange(flat.shape[0]) - np.repeat(np.cumsum(sizes) - sizes, sizes)
+    p = int(sizes.max())
+    cols = np.zeros((len(blocks), p), np.int64)
+    w = np.zeros((len(blocks), p), np.float32)
+    qt = np.zeros((len(blocks), p), np.float32)
+    gmass = np.asarray(_masses(system, "unit table", idx), np.float64)
+    cols[row, col] = np.asarray(loc)[flat]
+    w[row, col] = gmass[flat]
+    w /= w.sum(axis=1, keepdims=True)
+    if charges:
+        qt[row, col] = np.asarray(system.topology.charge, np.float64)[np.asarray(idx)[flat]]
+    return cols, w, qt, qt.sum(axis=1)
+
+
 def _blocks_by_key(key):
     """Local indices grouped by equal `key` rows ([K] or [K, c]) in order
     of first appearance -> (first local index of each block, blocks: each
@@ -1339,6 +1371,10 @@ _SPLIT_MODULES = {name: "structure" for name in (
     "clustsize", "cosine_content", "dccm", "dssp", "entropy", "mdmat",
     "mode_traj", "morph", "pca", "ramachandran", "rmsd_matrix", "rmsdist",
     "rmsf", "rotmat", "subspace_overlap")}
+_SPLIT_MODULES.update({name: "dynamics" for name in (
+    "_hbond_curve", "_hbond_h_matrix", "current", "diffusion", "dipole_corr",
+    "dos", "filter_traj", "hbond_acf", "hbond_lifetime", "msd", "msd_mol",
+    "rotacf", "tcaf", "vacf", "vanhove")})
 
 
 def __getattr__(name):

@@ -65,6 +65,15 @@ wrap boundary), of the covariance eigenvalues and the entropies
 matrix (`host_residue_min`), of the Kabsch-Sander energies and codes
 (`host_dssp_energy`, `host_dssp_codes`) and of the `gmx cluster` labels
 (`host_clusters`).
+
+For the time-correlation and transport analyses (`models/dynamics.py`):
+seeded AR(1) velocities (`ar1_velocities`) written with positions as a
+TRR (`write_trr`); float64 paths (`host_unwrap`, `host_com_paths`), lag
+sweeps (`host_msd`, `host_lag_corr`, `host_vanhove` with the norms at a
+shell edge), fits (`host_fit`), and `host_dos`, `host_tcaf`,
+`host_filtered`, `host_unit_vectors`, `host_dipole_paths`,
+`host_molecular_dipoles`; `current_bound` states what float32 rounding
+may move the conductivity's mean-squared dipole by.
 """
 
 from __future__ import annotations
@@ -93,7 +102,12 @@ __all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host
            "HELIX_PHI_PSI", "STRAND_PHI_PSI", "SHEET_SPACING",
            "host_prepared", "host_kabsch",
            "host_residue_min", "host_entropy", "host_clusters",
-           "host_covariance_eigh", "host_dssp_energy", "host_dssp_codes"]
+           "host_covariance_eigh", "host_dssp_energy", "host_dssp_codes",
+           "AMU_NM_PS_TO_PAS", "ar1_velocities", "write_trr", "host_unwrap",
+           "host_msd", "host_msd_axes", "host_lag_corr", "host_lag_corrs", "host_fit", "host_com_paths",
+           "host_unit_vectors", "host_dipole_paths", "current_bound",
+           "host_vanhove", "host_filtered", "host_dos", "host_tcaf",
+           "host_molecular_dipoles"]
 
 
 def host_refined_center(p, box, w=None):
@@ -1558,3 +1572,282 @@ def host_dssp_codes(hb, consec, states: int = 3, ca=None, box=None, residues=Non
                        (spans[4][0], "H")):
         ss[mask] = code
     return ss[out] if residues is not None else ss
+
+
+# ------------------------------------------------- oracles of the dynamics family
+# Float64 restatements of the formulas of `groan_rs_tpu/models/dynamics.py`'s
+# docstrings (`gmx msd`, `velacc`, `dos`, `rotacf`, `current`, `vanhove`,
+# `filter`, `tcaf`, `dipoles -corr`), over all time origins; none calls
+# the port.
+
+AMU_NM_PS_TO_PAS = 1.66053906660e-6   # amu/(nm ps) -> Pa s
+
+
+def ar1_velocities(n_frames: int, n_atoms: int, seed: int = 23, phi: float = 0.9,
+                   sigma: float = 0.3) -> np.ndarray:
+    """`[F, N, 3]` float32 velocities (nm/ps): a seeded AR(1) per atom and
+    axis, v[t + 1] = phi v[t] + sqrt(1 - phi^2) sigma xi, stationary with
+    standard deviation sigma, so that C(tau) ~ phi^tau."""
+    rng = np.random.default_rng(seed)
+    v = np.empty((n_frames, n_atoms, 3), np.float32)
+    v[0] = rng.normal(size=(n_atoms, 3)) * sigma
+    c = np.sqrt(1.0 - phi * phi) * sigma
+    for f in range(1, n_frames):
+        v[f] = phi * v[f - 1] + c * rng.normal(size=(n_atoms, 3))
+    return v
+
+
+def write_trr(path, coords, boxes9, times, steps, velocities) -> None:
+    """Write (replacing) a TRR of positions and velocities, frame by frame
+    (`boxes9` the `[F, 9]` box matrices as the XTC reader gives them)."""
+    if os.path.exists(path):
+        os.unlink(path)
+    for f in range(len(coords)):
+        native.trr_write_frame(path, coords.shape[1], int(steps[f]), float(times[f]), 0.0,
+                               np.asarray(boxes9[f], np.float32), x=coords[f],
+                               v=velocities[f])
+
+
+def host_unwrap(pos, boxes) -> np.ndarray:
+    """Float64 continuous paths of wrapped `[F, K, 3]` positions: each
+    consecutive displacement through the minimum image of the later
+    frame's box (`[F, 3]` lengths or `[F, 3, 3]` matrices), summed."""
+    p = np.asarray(pos, np.float64)
+    b = np.asarray(boxes, np.float64)
+    d = p[1:] - p[:-1]
+    if b.ndim == 3:
+        d = np.stack([host_min_image_triclinic(d[i], b[i + 1]) for i in range(len(d))])
+    else:
+        d -= b[1:, None, :] * np.round(d / b[1:, None, :])
+    return np.concatenate([p[:1], p[:1] + np.cumsum(d, axis=0)])
+
+
+def host_msd(u, lags, axes=(0, 1, 2), per_entity: bool = False) -> np.ndarray:
+    """Mean over the F - lag origins (and the K entities, unless
+    `per_entity`) of the squared displacement over `axes` -> [L] or [L, K]."""
+    u = np.asarray(u, np.float64)[..., list(axes)]
+    f = u.shape[0]
+    out = []
+    for lag in np.asarray(lags, np.int64):
+        d = u[lag:] - u[:f - lag]
+        sq = (d * d).sum(-1).mean(0)
+        out.append(sq if per_entity else sq.mean())
+    return np.asarray(out)
+
+
+def host_msd_axes(u, lags) -> np.ndarray:
+    """`[L, 3]`: per axis, the mean over the F - lag origins and the K
+    atoms of the squared displacement (`host_msd` of any axes is a sum of
+    its columns)."""
+    u = np.asarray(u, np.float64)
+    f = u.shape[0]
+    return np.asarray([((u[lag:] - u[:f - lag]) ** 2).mean((0, 1))
+                       for lag in np.asarray(lags, np.int64)])
+
+
+def host_lag_corr(s, lags, w=None, order: int | None = None) -> np.ndarray:
+    """Mean over the F - lag origins of the (w-weighted) mean over K of
+    s(t) . s(t + lag), or of its Legendre polynomial P_order."""
+    return host_lag_corrs(s, lags, [(w, order)])[0]
+
+
+def host_lag_corrs(s, lags, forms) -> list:
+    """`host_lag_corr` for each (w, order) of `forms`, from one dot
+    product per lag."""
+    s = np.asarray(s, np.float64)
+    f, k = s.shape[:2]
+    out = [[] for _ in forms]
+    for lag in np.asarray(lags, np.int64):
+        dot = (s[lag:] * s[:f - lag]).sum(-1)
+        for i, (w, order) in enumerate(forms):
+            x = 1.5 * dot * dot - 0.5 if order == 2 else dot
+            w = np.ones(k) if w is None else np.asarray(w, np.float64)
+            out[i].append(float((x @ w).sum() / (w.sum() * (f - lag))))
+    return [np.asarray(o) for o in out]
+
+
+def host_fit(t, y, lo: float, hi: float, positive: bool = False):
+    """Float64 least-squares line over the lag times in [lo, hi] x the
+    largest (and t > 0 with `positive`) -> (slope(s), intercept(s), mask)."""
+    t = np.asarray(t, np.float64)
+    mask = (t >= lo * t[-1]) & (t <= hi * t[-1])
+    if positive:
+        mask &= t > 0
+    a = np.stack([t[mask], np.ones(int(mask.sum()))], 1)
+    coef = np.linalg.lstsq(a, np.asarray(y, np.float64)[mask], rcond=None)[0]
+    return coef[0], coef[1], mask
+
+
+def host_com_paths(u, mol, w) -> np.ndarray:
+    """`[F, M, 3]` w-weighted centres of the continuous paths `u` [F, K, 3]
+    per molecule label `mol` [K] (molecules in label order)."""
+    u = np.asarray(u, np.float64)
+    _, inv = np.unique(mol, return_inverse=True)
+    inv = inv.reshape(-1)
+    m = int(inv.max()) + 1
+    w = np.asarray(w, np.float64)
+    wsum = np.bincount(inv, w, m)
+    out = np.empty((u.shape[0], m, 3))
+    for f in range(u.shape[0]):
+        for a in range(3):
+            out[f, :, a] = np.bincount(inv, w * u[f, :, a], m) / wsum
+    return out
+
+
+def host_unit_vectors(head, tail, boxes) -> np.ndarray:
+    """`[F, K, 3]` unit minimum-image vectors from `tail` to `head`."""
+    b = np.asarray(boxes, np.float64)
+    d = np.stack([_mi(np.asarray(head[f], np.float64) - np.asarray(tail[f], np.float64), b[f])
+                  for f in range(len(b))])
+    return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def host_dipole_paths(u, q) -> np.ndarray:
+    """`[F, 3]` translational dipoles sum_i q_i u_i(t) in float64."""
+    return np.einsum("fka,k->fa", np.asarray(u, np.float64), np.asarray(q, np.float64))
+
+
+def current_bound(q, u_max: float, mj2) -> np.ndarray:
+    """Per-lag bound on |mj2_float32 - mj2_float64| of `current`, from the
+    float32 error of each frame's M_J = sum_i q_i u_i, per axis:
+
+    - the paths: each u_i(t) = pos_i(0) + cumsum(d) rounds once at
+      ulp(u_max) / 2 (the cumsum of small steps adds far less), so a
+      displacement carries about one ulp; over N atoms of random sign
+      that is sqrt(N) max|q| ulp(u_max);
+    - the sum over N terms |q_i u_i| <= max|q| u_max, reduced as a tree
+      (or in blocks no longer than log2 N): 2^-24 sqrt(N log2 N) max|q|
+      u_max per frame, sqrt(2) of it for a difference of two frames.
+
+    With B the sum of the two, |d(ΔM . ΔM)| <= 2 |ΔM| sqrt(3) B + 3 B^2,
+    |ΔM| = sqrt(mj2).  At the 1M-atom smoke (max|q| 0.834, u_max ~ 21 nm,
+    |ΔM| ~ 8 e nm at one lag) this is ~3e-3 relative at lag 1 and ~5e-4
+    at lag 47; the error it models is statistical, not a worst case."""
+    q = np.asarray(q, np.float64)
+    n = q.shape[0]
+    qmax = np.abs(q).max()
+    ulp = float(np.spacing(np.float32(u_max)))
+    b = (np.sqrt(n) * qmax * ulp
+         + np.sqrt(2.0) * 2.0 ** -24 * np.sqrt(n * max(1.0, np.log2(n))) * qmax * u_max)
+    return 2.0 * np.sqrt(np.asarray(mj2, np.float64)) * np.sqrt(3.0) * b + 3.0 * b * b
+
+
+def host_vanhove(u, lags, r_max: float, bins: int, tol: float = 1e-6):
+    """`[L, bins + 1]` int64 counts of the displacement norms over every
+    origin and atom in shells of r_max / bins (the last column: at or past
+    r_max), and per lag the number of norms within `tol` nm of a shell
+    edge (where a float32 norm may fall on the other side)."""
+    u = np.asarray(u, np.float64)
+    f = u.shape[0]
+    dr = r_max / bins
+    counts, edge = [], []
+    for lag in np.asarray(lags, np.int64):
+        d = u[lag:] - u[:f - lag]
+        r = np.sqrt((d * d).sum(-1)).reshape(-1)
+        idx = np.where(r >= r_max, bins, np.minimum((r / dr).astype(np.int64), bins))
+        counts.append(np.bincount(idx, minlength=bins + 1))
+        near = np.abs(r / dr - np.round(r / dr)) * dr < tol
+        edge.append(int((near & (r > tol)).sum()))
+    return np.asarray(counts, np.int64), np.asarray(edge)
+
+
+def host_filtered(u, window: int) -> np.ndarray:
+    """The cosine low-pass filter of `gmx filter` in float64: weights
+    1 + cos(pi i / (n + 1)) over the `window` frames around each frame,
+    renormalised over the frames present."""
+    u = np.asarray(u, np.float64)
+    f = u.shape[0]
+    half = window // 2
+    band = np.zeros((f, f))
+    for i in range(f):
+        for o in range(-half, half + 1):
+            if 0 <= i + o < f:
+                band[i, i + o] = 1.0 + np.cos(np.pi * o / (half + 1))
+    band /= band.sum(1, keepdims=True)
+    return np.einsum("ij,jka->ika", band, u)
+
+
+def host_dos(c_w, c_u, t, m_total: float, n_atoms: int) -> dict:
+    """`gmx dos` in float64 from the mass-weighted (per unit mass) and
+    plain atom-mean VACFs: T from C(0) = 3 N kB T, S(nu) = 2 / (kB T) times
+    the real FT of the even extension (a rectangle rule, via the FFT), the
+    integral of S (dof, 3N by Parseval) and the Green-Kubo D (cm^2/s)."""
+    kb = 8.3144626e-3
+    c = np.asarray(c_w, np.float64) * m_total
+    t = np.asarray(t, np.float64)
+    dt = t[1] - t[0]
+    temp = c[0] / (3.0 * n_atoms * kb)
+    ext = np.concatenate([c, c[-2:0:-1]])
+    s = 2.0 / (kb * temp) * np.fft.rfft(ext).real * dt
+    dof = (s.sum() - 0.5 * (s[0] + s[-1])) / (len(ext) * dt)
+    c_u = np.asarray(c_u, np.float64)
+    d = (np.diff(t) * (c_u[1:] + c_u[:-1]) / 2.0).sum() / 3.0
+    return {"T": temp, "dos": s, "dof": dof, "D": d * 1e-2, "vacf": c}
+
+
+def host_tcaf(pos, vel, mass, box, n_k: int, fit_floor: float, dt: float,
+              prefix=None) -> dict:
+    """`gmx tcaf` in float64: per axis a, mode m (k = 2 pi m / L_a) and
+    transverse axis b the current sum m_i v_ib exp(i k x_ia), its
+    all-origin ACF (real part), averaged over the 6 (a, b) pairs;
+    normalised; nu from a line through ln C over the leading points above
+    `fit_floor` (at least 3; or `prefix[m]` points when given); eta(k) =
+    rho nu(k), eta0 from eta(k) = eta0 (1 - a k^2) over the mean k^2."""
+    p = np.asarray(pos, np.float64)
+    v = np.asarray(vel, np.float64)
+    mass = np.asarray(mass, np.float64)
+    box = np.asarray(box, np.float64)
+    f = p.shape[0]
+    curves = np.zeros((n_k, f))
+    for a in range(3):
+        # exp(i m k1 x) as powers of exp(i k1 x): one cos and sin per axis
+        e1 = np.exp(1j * (2.0 * np.pi / box[a]) * p[:, :, a])
+        em = mass * e1
+        for m in range(n_k):
+            for b in (b for b in range(3) if b != a):
+                j = (em * v[:, :, b]).sum(1)
+                curves[m] += [(j[lag:] * np.conj(j[:f - lag])).real.sum() / (f - lag)
+                              for lag in range(f)]
+            em = em * e1
+    curves /= 6.0
+    cn = curves / curves[:, :1]
+    t = np.arange(f) * dt
+    k2 = (2.0 * np.pi * np.arange(1, n_k + 1) * np.mean(1.0 / box)) ** 2
+    nu, stops = np.empty(n_k), []
+    for m in range(n_k):
+        good = cn[m] > fit_floor
+        stop = f if good.all() else int(np.argmin(good))
+        stop = max(stop, 3) if prefix is None else int(prefix[m])
+        stops.append(stop)
+        a = np.stack([t[:stop], np.ones(stop)], 1)
+        slope = np.linalg.lstsq(a, np.log(np.maximum(cn[m, :stop], 1e-12)), rcond=None)[0][0]
+        nu[m] = -slope / k2[m]
+    rho = mass.sum() / np.prod(box)
+    eta_k = rho * nu * AMU_NM_PS_TO_PAS
+    eta0 = np.linalg.lstsq(np.stack([np.ones(n_k), k2], 1), eta_k, rcond=None)[0][0]
+    return {"tcaf": cn, "nu": nu, "eta_k": eta_k, "eta0": eta0, "stops": stops}
+
+
+def host_molecular_dipoles(p, boxes, mol, w, q):
+    """Per frame the total dipole `[F, 3]` (sum q_i r_i, r_i the minimum
+    image from the first atom of i's molecule; `host_total_dipole`) and
+    the molecular dipoles `[F, M, 3]` about each molecule's w-weighted
+    mean of the r_i (molecules by label `mol` [K], in label order)."""
+    _, inv = np.unique(mol, return_inverse=True)
+    inv = inv.reshape(-1)
+    m = int(inv.max()) + 1
+    first = np.full(m, inv.shape[0])
+    np.minimum.at(first, inv, np.arange(inv.shape[0]))
+    w = np.asarray(w, np.float64)
+    q = np.asarray(q, np.float64)
+    wsum = np.bincount(inv, w, m)
+    b = np.asarray(boxes, np.float64)
+    total, out = np.empty((len(b), 3)), np.empty((len(b), m, 3))
+    for f in range(len(b)):
+        x = np.asarray(p[f], np.float64)
+        rel = _mi(x - x[first[inv]], b[f])
+        total[f] = (q[:, None] * rel).sum(0)
+        com = np.stack([np.bincount(inv, w * rel[:, a], m) for a in range(3)], 1) / wsum[:, None]
+        d = rel - com[inv]
+        out[f] = np.stack([np.bincount(inv, q * d[:, a], m) for a in range(3)], 1)
+    return total, out
