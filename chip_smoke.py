@@ -172,6 +172,32 @@ Phases, each of which raises on failure (the run then exits non-zero):
    `runner(group=...)` window equal the file calls bit for bit, and a
    window without the group raises `ParallelError`; `msd_mol` and
    `vanhove` repeat bit for bit.  K1, K2 and K3 never launch (predicted 0).
+15. The membrane and interfacial-water analyses (`models/membrane.py`),
+   1M atoms, each from its file name, on phase 14's topology with
+   `testing.named_layout`'s residues and names, over phase 4's 48 frames:
+   `densmap` of the 601,000 water atoms (xy, 100 x 100; number, mass and
+   charge; its GridMap saved and read back), `potential_profile` of all
+   atoms (z, 100 slabs), `order_parameters` of the Membrane (96,000 C-H
+   bonds), `densorder` of the Membrane (mass, 100 slabs, threshold 0.5),
+   `leaflets` of the 6,000 lipid heads (atom P), `h2order` of the 200,333
+   whole waters (50 slabs), `sorient` and `spol` around the Protein's
+   refined centre (rmax 1.5 nm; 40 and 50 bins), `hydorder` of the 200,333
+   oxygens over frames 0-3 (20 slabs).  Against float64 oracles
+   (`testing.py`, 4 threads): densmap counts equal (the float32 tile rule;
+   within `host_density_map`'s edge bounds), densities within 1e-5; rho,
+   field and psi within 1e-4 of their largest; order within 1e-4;
+   interfaces within 1e-3 nm; leaflet signs equal, thickness and centre
+   within 1e-4 nm; h2order counts equal, cosines within 1e-4; sorient and
+   spol histograms equal but for values within float32 reach of a bin
+   edge, means within 1e-4; hydorder S_g and S_k within 1e-4 of a
+   periodic cKDTree query but for 4th/5th-neighbour ties within 1e-5 nm.
+   `sorient` and `hydorder` over a `load_device` window equal the file
+   calls bit for bit, and repeat; `sorient` over "name OW" (a lone last
+   OW) raises InvalidWater; hydorder's tie rule holds on the card; on
+   phase 8's dodecahedron (12 frames) `densmap` and `sorient` against the
+   triclinic oracles with no kernel launch.  K1 and K2 launch once per
+   frame chunk of each `sorient` and `spol` call (3 at 48 frames), K3
+   never; its launches join the kernels' line.
 
 Phase 7 also prints the worst of the 1M-atom dihedral sites: its error,
 central bond, bend angles, lever arm, whether it crosses the box, and
@@ -2792,6 +2818,461 @@ def dynamics_phase(torch, xtc, offs, nat, frame0, box, dev):
     return counts
 
 
+MEM_GRID = (100, 100)      # densmap tiles
+HYD_FRAMES = 4             # frames of hydorder: O(W^2) pairs a frame
+HYD_SLABS = 20
+
+
+def _rel_close(got, want, what, rel):
+    e = float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+    check(e <= rel, f"{what} within {rel:g} of its largest magnitude ({e:.2e})")
+
+
+def _slack_close(got, sure, slack, what):
+    gap = np.abs(np.asarray(got, np.float64) - sure)
+    check((gap <= slack + 1e-6).all(),
+          f"{what}: equal to float64 but for {int(slack.sum() // 2)} values within float32 "
+          f"reach of a bin edge (largest gap {gap.max():.3g})")
+
+
+def _chunks(per_frame, n_frames):
+    """Frame chunks of a call whose largest temporary holds `per_frame`
+    elements a frame, at most 2^26 elements a chunk."""
+    return -(-n_frames // max(1, (1 << 26) // per_frame))
+
+
+def _tie_checks(torch, dev):
+    """hydorder on exact ties of d^2 on the card: the four nearest of the
+    centre's six equidistant neighbours are the four lowest indices."""
+    from groan_rs_tpu_torch import convert
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    axes = {"+x": [0.25, 0, 0], "-x": [-0.25, 0, 0], "+y": [0, 0.25, 0],
+            "-y": [0, -0.25, 0], "+z": [0, 0, 0.25], "-z": [0, 0, -0.25]}
+    box = np.float32([4.0, 4.0, 4.0])
+    for order, sg in ((("+x", "+y", "-x", "-y", "+z", "-z"), 0.5),
+                      (("+x", "-x", "+y", "+z", "-y", "-z"), 0.625)):
+        pts = (2.0 + np.concatenate([[[0.0, 0.0, 0.0]], [axes[k] for k in order]])).astype(
+            np.float32)
+        path = os.path.join(K.BUILD_DIR, "smoke_tie.xtc")
+        if os.path.exists(path):
+            os.unlink(path)
+        native.xtc_write_frame(path, 7, 0, 0.0, np.diag(box).reshape(9), pts, 1000.0)
+        s = convert.system_from_state({
+            "positions": pts, "box": box, "mass": np.ones(7, np.float32),
+            "has_mass": np.ones(7, bool), "precision": 1000,
+            "groups": {"O": np.arange(7)}}, device=dev)
+        got = float(M.hydorder(s, path, "O")["sg"][0, 0])
+        check(got == sg, f"hydorder on the card: the centre's four nearest of six tied are the "
+              f"four lowest indices (S_g {got} == {sg}, order {' '.join(order)})")
+        os.unlink(path)
+
+
+def _membrane_triclinic(torch, dev):
+    """`densmap` and `sorient` on phase 8's rhombic dodecahedron (12
+    frames) against the triclinic float64 oracles; no kernel launches."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    txtc = triclinic_xtc(BATCH)
+    offs, _, _, nat = native.xtc_scan(txtc)
+    coords, b9s = native.xtc_read_frames(txtc, offs, nat)[:2]
+    h = b9s.reshape(-1, 3, 3)
+    lay = testing.synthetic_layout(nat)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    n_whole = (nat - w0) // 3
+    state = testing.synthetic_state(coords[0], h[0], topology="full")
+    names = testing.named_layout(nat)
+    state.update({k: names[k] for k in ("resnum", "resname", "atomname")})
+    system = convert.system_from_state(state, device=dev)
+    system.group_create_from_indices("WW", np.arange(w0, w0 + 3 * n_whole))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dm = M.densmap(system, txtc, "Water", bins=MEM_GRID, batch_size=BATCH)
+    so = M.sorient(system, txtc, "Protein", oxygen="WW and name OW",
+                   hydrogens="WW and name HW1 HW2", rmax=1.5, bins=40, batch_size=BATCH)
+    say(f"  triclinic densmap + sorient ({len(offs)} frames): {time.perf_counter() - t0:.2f} s")
+    no_launches(dict(K.launch_counts), "phase 15's triclinic calls")
+    wat = system.group_indices("Water")
+    counts, _, c_slack, _ = testing.host_densmap(coords[:, wat], h, 0, 1, *MEM_GRID,
+                                                 np.ones(len(wat)))
+    _slack_close(dm["counts"], counts, c_slack, "triclinic densmap counts")
+    check(dm["counts"].sum() == len(offs) * len(wat), "triclinic densmap keeps every atom")
+    p = system.topology.mass[:n_prot]
+    ctr = C.center_triclinic(torch.from_numpy(coords[:, :n_prot]).to(dev),
+                             torch.from_numpy(h).to(dev), weights=p).cpu().numpy()
+    host = np.stack([testing.host_refined_center_triclinic(coords[f, :n_prot], h[f], p)
+                     for f in range(len(offs))])
+    # an atom within 1e-5 (fractional) of the unwrap boundary about the
+    # float64 estimate may take the other image in float32: it moves the
+    # centre by its box vector times m_i / sum m
+    jump = np.zeros(len(offs))
+    for f in range(len(offs)):
+        sf = coords[f, :n_prot].astype(np.float64) @ np.linalg.inv(h[f])
+        theta = (sf - np.floor(sf)) * 2 * np.pi
+        est = (np.arctan2(-(p[:, None] * np.sin(theta)).sum(0),
+                          -(p[:, None] * np.cos(theta)).sum(0)) + np.pi) / (2 * np.pi)
+        d = sf - est
+        near = np.abs(np.abs(d - np.round(d)) - 0.5) < 1e-5
+        jump[f] = ((near * p[:, None]).sum(0) * np.linalg.norm(h[f], axis=1)).sum() / p.sum()
+    delta = np.linalg.norm(ctr - host, axis=1)
+    check((delta <= 1e-4 + jump).all(), f"triclinic reference centre within 1e-4 nm plus the "
+          f"image changes ({delta.max():.2e}; bound {jump.max():.2e} nm)")
+    o = np.arange(w0, w0 + 3 * n_whole, 3)
+    want = testing.host_sorient(coords[:, o], coords[:, o + 1], coords[:, o + 2],
+                                coords[:, :n_prot], p, h, 0.0, 1.5, 40, delta=delta)
+    _sorient_checks(so, want, "triclinic sorient")
+
+
+def _mean_slack(s_slack, n_slack, n):
+    """How far a mean of cosines (sum S over count N) may move when S moves
+    by `s_slack` and N by `n_slack`: (s_slack + n_slack) / (N - n_slack),
+    unbounded where N - n_slack <= 0."""
+    room = n - n_slack
+    return np.where(room > 0, (s_slack + n_slack) / np.maximum(room, 1e-300), np.inf)
+
+
+def _sorient_checks(so, want, what):
+    n = so["n_selected"]
+    check(abs(n - want["n"]) <= want["n_slack"] and n > 0,
+          f"{what}: {n:.0f} water-frames in the shell (float64 {want['n']:.0f}, "
+          f"{want['n_slack']:.0f} at its edges)")
+    dc = 2.0 / len(so["cos1_hist"])
+    _slack_close(so["cos1_hist"] * n * dc, want["h1"], want["h1_slack"], f"{what} cos1 counts")
+    _slack_close(so["cos2_hist"] * 2 * n * dc, want["h2"], want["h2_slack"],
+                 f"{what} cos2 counts")
+    for key, s, div in (("mean_cos1", "s1", n), ("mean_cos2", "s2", 2 * n)):
+        e = abs(so[key] - want[s] / div)
+        check(e <= 1e-4 + (want[s + "_slack"] + want["n_slack"]) / div,
+              f"{what} {key} {so[key]:.6f} within 1e-4 of float64 ({e:.2e})")
+    ok = want["rn"] > 0
+    e = np.abs(so["mean_cos1_r"][ok] - want["rs"][ok] / want["rn"][ok])
+    bound = 1e-4 + _mean_slack(want["rs_slack"][ok], want["rn_slack"][ok], want["rn"][ok])
+    check((e <= bound).all(), f"{what} mean_cos1_r within 1e-4 of float64 per shell, plus "
+          f"what values at a shell edge or the centre's gap move it by (largest gap "
+          f"{e.max():.2e}, {(e / bound).max():.3f} of its bound)")
+
+
+def membrane_phase(torch, xtc, offs, nat, frame0, box, dev):
+    """Phase 15: the membrane and interfacial-water analyses of
+    `models/membrane.py` over phase 4's XTC -> the K1/K2/K3 launches of
+    its main path (predicted: one K1 and one K2 a frame chunk of each
+    `sorient` and `spol` call, no K3)."""
+    from groan_rs_tpu_torch import GridMap, convert, testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.errors import GroupError
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    say(f"phase 15: membrane and interfacial-water analyses, {nat} atoms x {N_FRAMES} frames")
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    lay = testing.synthetic_layout(nat)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    n_whole = (nat - w0) // 3
+    state = testing.synthetic_state(frame0.copy(), box, topology="full")
+    names = testing.named_layout(nat)
+    state.update({k: names[k] for k in ("resnum", "resname", "atomname")})
+    system = convert.system_from_state(state, device=dev)
+    heads = np.arange(n_prot + 3, w0, testing.LIPID_SIZE)        # the lipids' P
+    system.group_create_from_indices("Heads", heads)
+    system.group_create_from_indices("WW", np.arange(w0, w0 + 3 * n_whole))
+    ox, hy = "WW and name OW", "WW and name HW1 HW2"
+    n_hyd = min(HYD_FRAMES, N_FRAMES)
+    hxtc = os.path.join(K.BUILD_DIR, f"smoke_hyd_{nat}_{n_hyd}.xtc")
+    with open(xtc, "rb") as src, open(hxtc, "wb") as dst:   # frames 0-3, byte for byte
+        dst.write(src.read(int(offs[n_hyd]) if n_hyd < len(offs) else -1))
+    gm_path = os.path.join(K.BUILD_DIR, "smoke_densmap.dat")
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    # ---- the phase's main path: what a user calls, from the file names -----
+    K.reset_launch_counts()
+    t_main = time.perf_counter()
+    dm = {w: timed(f"densmap Water {w}", lambda w=w: M.densmap(
+        system, xtc, "Water", bins=MEM_GRID, weights=w, batch_size=BATCH))
+        for w in ("number", "mass", "charge")}
+    timed("GridMap save", lambda: dm["number"]["map"].save(gm_path))
+    back = timed("GridMap from_file", lambda: GridMap.from_file(gm_path))
+    pot = timed("potential_profile all", lambda: M.potential_profile(
+        system, xtc, "all", n_bins=100, batch_size=BATCH))
+    order = timed("order_parameters Membrane", lambda: M.order_parameters(
+        system, xtc, "Membrane", batch_size=BATCH))
+    dens = timed("densorder Membrane", lambda: M.densorder(
+        system, xtc, "Membrane", bins=100, mode="mass", threshold=0.5, batch_size=BATCH))
+    leaf = timed("leaflets Heads", lambda: M.leaflets(system, xtc, "Heads", batch_size=BATCH))
+    h2 = timed("h2order", lambda: M.h2order(system, xtc, oxygen=ox, hydrogens=hy, bins=50,
+                                            batch_size=BATCH))
+    so = timed("sorient", lambda: M.sorient(system, xtc, "Protein", oxygen=ox, hydrogens=hy,
+                                            rmax=1.5, bins=40, batch_size=BATCH))
+    sp = timed("spol", lambda: M.spol(system, xtc, "Protein", "WW", rmax=1.5, bins=50,
+                                      batch_size=BATCH))
+    hyd = timed(f"hydorder ({n_hyd} frames)", lambda: M.hydorder(
+        system, hxtc, ox, slabs=HYD_SLABS, batch_size=BATCH))
+    t_main = time.perf_counter() - t_main
+    counts = dict(K.launch_counts)
+    say("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    say(f"  the phase's main path: {t_main:.2f} s")
+    if cuda:
+        say(f"  max_memory_allocated over the main path: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    # sorient: [F, W, 3] temporaries; spol: [F, W, 3, 3] (W whole waters)
+    n_ctr = _chunks(3 * max(n_whole, n_prot), N_FRAMES) + _chunks(9 * n_whole, N_FRAMES)
+    predicted = {"bai_breen_estimate": n_ctr, "bai_breen_refine": n_ctr, "pair_reduce": 0}
+    say(f"  launches {counts}, predicted {predicted}")
+    if cuda:
+        check(counts == predicted, "K1, K2 and K3 launched as the code predicts")
+    else:
+        no_launches(counts, "phase 15 on the CPU")
+
+    # ---- the reader's refusals --------------------------------------------
+    try:
+        M.sorient(system, xtc, "Protein", oxygen="name OW", hydrogens="name HW1 HW2")
+        code = None
+    except GroupError as e:
+        code = e.code
+    check(code == "InvalidWater", "sorient over 'name OW' (the layout's last water is a "
+          f"lone OW) raises GroupError InvalidWater ({code})")
+
+    # ---- against float64 oracles --------------------------------------------
+    t_or = time.perf_counter()
+    coords, b9s = native.xtc_read_frames(xtc, offs[:N_FRAMES], nat)[:2]
+    boxes = b9s[:, [0, 4, 8]].astype(np.float64)
+    wat, mem = system.group_indices("Water"), system.group_indices("Membrane")
+    mass, q = system.topology.mass, system.topology.charge
+    o = np.arange(w0, w0 + 3 * n_whole, 3)
+    c_idx, h_idx = order["pairs"]
+    w_prot = mass[:n_prot]
+    # the reference centre on the card (K1 + K2, outside the main path's count)
+    # against float64: within 1e-4 nm plus the jumps of the atoms whose
+    # unwrap image differs between the card's estimate and float64's
+    # (each moves the mass-weighted centre by L m_i / sum m)
+    p_dev = torch.from_numpy(coords[:, :n_prot]).to(dev)
+    b_dev = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    ctr = C.center(p_dev, b_dev, weights=w_prot).cpu().numpy()
+    est = K.bai_breen_estimate(p_dev, None, b_dev).cpu().numpy()
+    del p_dev
+    host_ctr = np.stack([testing.host_refined_center(coords[f, :n_prot], boxes[f], w_prot)
+                         for f in range(N_FRAMES)])
+    jump = np.zeros((N_FRAMES, 3))
+    n_jump = 0
+    for f in range(N_FRAMES):
+        p, bl = coords[f, :n_prot], boxes[f]
+        theta = np.mod(p.astype(np.float64), bl) * (2 * np.pi / bl)
+        est_h = (np.arctan2(-np.sin(theta).sum(0), -np.cos(theta).sum(0)) + np.pi) \
+            * bl / (2 * np.pi)
+        b32 = bl.astype(np.float32)
+        img_k = np.floor((p - est[f] + b32 * np.float32(0.5)) / b32)
+        img_h = np.floor((p - est_h + bl / 2) / bl)
+        moved = img_k != img_h
+        n_jump += int(moved.sum())
+        jump[f] = (moved * w_prot[:, None]).sum(0) * bl / w_prot.sum()
+    gap = np.abs(ctr - host_ctr)
+    delta = np.linalg.norm(ctr - host_ctr, axis=1)
+    check((gap <= 1e-4 + jump).all(), f"the Protein's refined centre (K1 + K2) within 1e-4 nm "
+          f"of float64 on every frame, plus the image changes ({gap.max():.2e}; {n_jump} atom "
+          f"coordinates change image, bound {jump.max():.2e} nm)")
+    oracle_secs = {}
+
+    def dm_oracle(wname):
+        w = {"number": np.ones(len(wat)), "mass": mass[wat], "charge": q[wat]}[wname]
+        return testing.host_densmap(coords[:, wat], boxes, 0, 1, *MEM_GRID,
+                                    w.astype(np.float32))
+
+    def dm_bounds():
+        span = ((0.0, float(boxes[0, 0])), (0.0, float(boxes[0, 1])))
+        lo = hi = 0
+        for f in range(N_FRAMES):
+            a, b = testing.host_density_map(np.mod(coords[f, wat], boxes[f]), (0, 1), span,
+                                            *MEM_GRID)
+            lo, hi = lo + a, hi + b
+        return lo, hi
+
+    def densorder_oracle():
+        prof = np.stack([testing.host_density_profile(coords[f, mem], boxes[f], 2, 100,
+                                                      mass[mem], 1.66053906660)
+                         for f in range(N_FRAMES)])
+        return testing.host_interfaces(prof, boxes[:, 2], 0.5)
+
+    def hyd_oracle():
+        return [testing.host_hydorder(coords[f, o], boxes[f]) for f in range(n_hyd)]
+
+    def spol_oracle():
+        g = np.stack([o, o + 1, o + 2], 1)
+        m = mass[g].astype(np.float64)
+        return testing.host_spol(coords[:, g], m / m.sum(1, keepdims=True), q[g],
+                                 coords[:, :n_prot], w_prot, boxes, 1.5, 50, delta=delta)
+
+    jobs = {
+        **{f"densmap {w}": (lambda w=w: dm_oracle(w)) for w in ("number", "mass", "charge")},
+        "densmap bounds": dm_bounds,
+        "potential": lambda: testing.host_potential(coords, boxes, q, 2, 100),
+        "order": lambda: np.mean([testing.host_order(coords[f, c_idx], coords[f, h_idx],
+                                                     boxes[f], [0, 0, 1])
+                                  for f in range(N_FRAMES)], axis=0),
+        "densorder": densorder_oracle,
+        "leaflets": lambda: testing.host_leaflets(coords[:, heads, 2], boxes[:, 2]),
+        "h2order": lambda: testing.host_h2order(coords[:, o], coords[:, o + 1],
+                                                coords[:, o + 2], boxes, 2, 50),
+        "sorient": lambda: testing.host_sorient(coords[:, o], coords[:, o + 1],
+                                                coords[:, o + 2], coords[:, :n_prot], w_prot,
+                                                boxes, 0.0, 1.5, 40, delta=delta),
+        "spol": spol_oracle,
+        "hydorder": hyd_oracle,
+    }
+
+    def timed_job(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        oracle_secs[name] = time.perf_counter() - t
+        return out
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        fut = {k: pool.submit(timed_job, k, fn) for k, fn in jobs.items()}
+
+        for wname in ("number", "mass", "charge"):
+            counts_h, dens_h, _, _ = fut[f"densmap {wname}"].result()
+            got = dm[wname]
+            if wname == "number":
+                check(np.array_equal(got["counts"], counts_h),
+                      f"densmap counts of the {len(wat)} water atoms equal float64's "
+                      f"(the device's float32 tile rule) over {MEM_GRID[0]}x{MEM_GRID[1]} tiles")
+                lo, hi = fut["densmap bounds"].result()
+                check(((lo <= got["counts"]) & (got["counts"] <= hi)).all(),
+                      "densmap counts within testing.host_density_map's edge bounds "
+                      f"(hi - lo summed over the tiles: {int((hi - lo).sum())}; the tile "
+                      "edges lie on the file's 0.001 nm grid)")
+                big = int(got["counts"].max())
+                say(f"  densmap: the fullest tile holds {big} atom-frames "
+                    f"({'above' if big > 2 ** 24 else 'below'} 2^24 = {2 ** 24})")
+            else:
+                _rel_close(got["counts"], counts_h, f"densmap {wname} counts", 1e-5)
+            _rel_close(got["density"], dens_h, f"densmap {wname} density", 1e-5)
+        check(np.array_equal(back.values, dm["number"]["map"].values)
+              and back.n_tiles() == MEM_GRID[0] * MEM_GRID[1],
+              "the densmap GridMap reads back from its text file equal")
+
+        want = fut["potential"].result()
+        _rel_close(pot["rho"], want["rho"], f"potential_profile rho of all {nat} atoms", 1e-4)
+        # field and psi are cumulative sums of rho in float64 on the host, as
+        # the oracle's: of a neutral system, small differences of large sums,
+        # so they are held to what rho's float32 gap moves them by
+        bounds = testing.potential_gap_bound(pot["rho"] - want["rho"], float(boxes[0, 2]), 100)
+        for k, bound in zip(("field", "psi"), bounds):
+            gap = np.abs(pot[k] - want[k])
+            check((gap <= bound).all(), f"potential_profile {k} within what rho's float32 gap "
+                  f"moves it by ({gap.max() / np.abs(want[k]).max():.2e} of its largest, "
+                  f"{(gap / bound).max():.3f} of the bound)")
+
+        want = fut["order"].result()
+        e = float(np.abs(order["s_pairs"] - want).max())
+        check(len(c_idx) == len(lay["lipid_hydrogens"]) and e <= 1e-4,
+              f"order_parameters: the {len(c_idx)} C-H bonds within 1e-4 of float64 ({e:.2e})")
+
+        lower, upper = fut["densorder"].result()
+        e = max(float(np.abs(dens["lower"] - lower).max()),
+                float(np.abs(dens["upper"] - upper).max()))
+        check(np.isfinite(dens["thickness"]).all() and (dens["lower"] < dens["upper"]).all()
+              and e <= 1e-3, f"densorder: two interfaces a frame within 1e-3 nm of float64 "
+              f"({e:.2e}; mean {dens['lower'].mean():.3f} / {dens['upper'].mean():.3f} nm)")
+
+        lf, thick, center, near = fut["leaflets"].result()
+        same = (leaf["leaflet"] == lf) | near
+        e = max(float(np.abs(leaf["thickness"] - thick).max()),
+                float(np.abs(leaf["center"] - center).max()))
+        check(same.all() and e <= 1e-4,
+              f"leaflets: the {len(heads)} heads' signs equal float64's ({int(near.sum())} "
+              f"within 1e-5 nm of the centre), thickness and centre within 1e-4 nm ({e:.2e}; "
+              f"upper {int((leaf['leaflet'] > 0).sum())} of {leaf['leaflet'].size})")
+
+        want = fut["h2order"].result()
+        ok = want["cn"] > 0
+        e = float(np.abs(h2["cos"][ok] - want["cs"][ok] / want["cn"][ok]).max())
+        check(np.array_equal(h2["count"], want["cn"]) and h2["count"].sum() == N_FRAMES * n_whole
+              and e <= 1e-4, f"h2order: slab counts equal float64's, {n_whole} waters a "
+              f"frame, mean cosines within 1e-4 ({e:.2e})")
+
+        _sorient_checks(so, fut["sorient"].result(), "sorient")
+
+        want = fut["spol"].result()
+        _slack_close(sp["counts"], want["cn"], want["cn_slack"], "spol shell counts")
+        ok = want["cn"] > 0
+        e = np.abs(sp["mean_cos_r"][ok] - want["cs"][ok] / want["cn"][ok])
+        bound = 1e-4 + _mean_slack(want["cs_slack"][ok], want["cn_slack"][ok], want["cn"][ok])
+        check((e <= bound).all(), f"spol: per-shell mean cosines within 1e-4 of float64, plus "
+              f"what molecules at a shell edge or the centre's gap move them by (largest gap "
+              f"{e.max():.2e}, {(e / bound).max():.3f} of its bound; {sp['n_selected']:.0f} "
+              "molecule-frames in 1.5 nm)")
+
+        tied_n = 0
+        for f, (sg, sk, tied) in enumerate(fut["hydorder"].result()):
+            e = max(float(np.abs(hyd["sg"][f][~tied] - sg[~tied]).max()),
+                    float(np.abs(hyd["sk"][f][~tied] - sk[~tied]).max()))
+            tied_n += int(tied.sum())
+            check(e <= 1e-4, f"hydorder frame {f}: S_g and S_k of {int((~tied).sum())} "
+                  f"oxygens within 1e-4 of the periodic cKDTree's ({e:.2e})")
+        check(hyd["slab_counts"].sum() == n_hyd * n_whole,
+              f"hydorder: {HYD_SLABS} slabs hold every oxygen ({tied_n} oxygens excused "
+              "for a 4th/5th neighbour tie within 1e-5 nm)")
+    say(f"  oracles {time.perf_counter() - t_or:.1f} s on 4 threads (each job's own "
+        "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in oracle_secs.items()) + ")")
+
+    # ---- resident windows, determinism ---------------------------------------
+    t0 = time.perf_counter()
+    ta = M.TrajectoryAnalysis(system, device=dev)
+    dt = ta.runner(ship="all").load_device(xtc, batch_size=BATCH)
+    for label, again in (("over load_device(ship='all')", M.sorient(
+            system, dt, "Protein", oxygen=ox, hydrogens=hy, rmax=1.5, bins=40)),
+                         ("twice", M.sorient(system, xtc, "Protein", oxygen=ox, hydrogens=hy,
+                                             rmax=1.5, bins=40, batch_size=BATCH))):
+        check(all(np.array_equal(so[k], again[k], equal_nan=True) for k in so),
+              f"sorient {label}: the file call's bits")
+    del dt
+    hdt = ta.runner(ship="all").load_device(hxtc, batch_size=BATCH)
+    t1 = time.perf_counter()
+    again = M.hydorder(system, hdt, ox, slabs=HYD_SLABS)
+    if cuda:
+        torch.cuda.synchronize()
+    t_hyd = (time.perf_counter() - t1) / n_hyd
+    check(all(np.array_equal(hyd[k], again[k]) for k in hyd),
+          "hydorder over load_device(ship='all'): the file call's bits")
+    again = M.hydorder(system, hxtc, ox, slabs=HYD_SLABS, batch_size=BATCH)
+    check(all(np.array_equal(hyd[k], again[k]) for k in hyd), "hydorder twice: the same bits")
+    del hdt
+    # the least time of one frame: W^2 pairs x 25 FP32 instructions (3 subtractions,
+    # 3 x 5 of the minimum image, 5 of d^2, 2 of the running top-4) over 3.35e13/s
+    bound_ms = n_whole ** 2 * 25 / 3.35e13 * 1e3
+    say(f"  hydorder of one resident frame ({n_whole} oxygens, {n_whole ** 2:.3e} pairs): "
+        f"{1e3 * t_hyd:.1f} ms, bound {bound_ms:.1f} ms (operations) = "
+        f"{100 * bound_ms / (1e3 * t_hyd):.2f}%")
+    say(f"  windows and repeats: {time.perf_counter() - t0:.1f} s")
+    for path in (hxtc, gm_path):
+        os.unlink(path)
+
+    # ---- the card's tie rule, the triclinic forms ------------------------------
+    _tie_checks(torch, dev)
+    _membrane_triclinic(torch, dev)
+    say(f"  phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
+    return counts
+
+
 def main():
     import torch
 
@@ -2966,6 +3447,10 @@ def main():
     dyn_counts = dynamics_phase(torch, xtc, offs, nat, c0[0], box, dev)
     t_phase = phase_seconds(14, t_phase)
 
+    # ---- 15. the membrane and interfacial-water analyses ----------------------
+    mem_counts = membrane_phase(torch, xtc, offs, nat, c0[0], box, dev)
+    t_phase = phase_seconds(15, t_phase)
+
     # ---- where the time goes: one profiled pass of each kind -----------
     # the triclinic main path over one batch: phase 9's 12-frame file (the
     # first 12 frames of phase 8's) streamed, and a 12-frame resident window
@@ -3015,7 +3500,7 @@ def main():
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": (counts[k] + file_counts[k] + hb_counts[k] + api_counts[k]
-                      + struct_counts[k] + dyn_counts[k]),
+                      + struct_counts[k] + dyn_counts[k] + mem_counts[k]),
          "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
@@ -3026,7 +3511,8 @@ def main():
          "triclinic_launches": tri_counts[k] + tobs_counts[k],
          "main_path_launches": counts[k], "files_launches": file_counts[k],
          "hbonds_launches": hb_counts[k], "system_api_launches": api_counts[k],
-         "structure_launches": struct_counts[k], "dynamics_launches": dyn_counts[k]}
+         "structure_launches": struct_counts[k], "dynamics_launches": dyn_counts[k],
+         "membrane_launches": mem_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

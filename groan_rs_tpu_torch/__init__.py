@@ -36,6 +36,7 @@ from __future__ import annotations
 from . import backend
 from .backend import require_cuda
 from .core.dimension import Dimension
+from .core.gridmap import GridMap
 from .system import System
 
-__all__ = ["backend", "require_cuda", "Dimension", "System"]
+__all__ = ["backend", "require_cuda", "Dimension", "GridMap", "System"]

@@ -149,6 +149,13 @@ class CellGridError(GroanError):
     InvalidCellSize, GroupError, InvalidPosition)."""
 
 
+class GridMapError(GroanError):
+    """reference: errors.rs GridMapError (codes InvalidSpan,
+    InvalidGridTile, InvalidNumberOfValues, InvalidDataOrder, OutOfRange,
+    FileNotFound, CouldNotParseLine, EmptyFile, NotIncreasing,
+    InvalidCoordinates, Redefinition, Incomplete)."""
+
+
 class FileTypeError(GroanError):
     """Unknown or unsupported file type (reference: files.rs)."""
 

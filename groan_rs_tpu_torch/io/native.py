@@ -158,6 +158,15 @@ def xtc_scan(path):
             int(natoms.value))
 
 
+def n_default_threads() -> int:
+    """Decoder threads: `GROAN_DECODE_THREADS` when set, else one per CPU
+    core (JAX `io/native.py:144-148`)."""
+    env = os.environ.get("GROAN_DECODE_THREADS")
+    if env:
+        return max(1, int(env))
+    return max(1, os.cpu_count() or 1)
+
+
 def _read(fn, dtype, ctype, path, offsets, natoms, stop_after):
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     nf = offsets.shape[0]
@@ -170,13 +179,13 @@ def _read(fn, dtype, ctype, path, offsets, natoms, stop_after):
     rc = fn(str(path).encode(), _p(offsets, ctypes.c_int64), nf, natoms, stop,
             _p(coords, ctype), _p(boxes, ctypes.c_float),
             _p(steps, ctypes.c_int32), _p(times, ctypes.c_float),
-            _p(precisions, ctypes.c_float), max(1, os.cpu_count() or 1))
+            _p(precisions, ctypes.c_float), n_default_threads())
     _check(rc, path)
     return coords, boxes, _steps_u32(steps), times, precisions
 
 
 def xtc_read_frames(path, offsets, natoms: int, stop_after: int | None = None):
-    """Decode frames (one decoder thread per CPU core) -> (coords f32
+    """Decode frames (`n_default_threads()` decoder threads) -> (coords f32
     [F, stop_after, 3], boxes [F, 9] (row-major 3x3), steps, times,
     precisions)."""
     return _read(get_lib().gx_xtc_read, np.float32, ctypes.c_float, path,
@@ -261,7 +270,7 @@ def trr_read_frames(path, offsets, natoms: int, want_x: bool = True,
         str(path).encode(), _p(offsets, ctypes.c_int64), nf, natoms, stop,
         _p(x, fl), _p(v, fl), _p(f, fl), _p(boxes, fl), _p(steps, ctypes.c_int32),
         _p(times, ctypes.c_double), _p(lambdas, ctypes.c_double),
-        _p(flags, ctypes.c_uint8), max(1, os.cpu_count() or 1))
+        _p(flags, ctypes.c_uint8), n_default_threads())
     _check(rc, path)
     return x, v, f, boxes, _steps_u32(steps), times, lambdas, flags
 

@@ -27,8 +27,9 @@ Port of `groan_rs_tpu/io/traj.py` (`FrameBatch` :45-107, the sources
 - Wires: "f32" (float32 positions) and "q16" (raw quantized int16, 6 B per
   atom; `pos = float32(q) * (1 / precision)` on the device is bit-identical
   to the float decode).  "auto" resolves to "q16", with the JAX reader's
-  fallback to f32 when a file's integers do not fit int16.  The delta wires
-  are not ported (ROADMAP.md).
+  fallback to f32 when a file's integers do not fit int16.  `GROAN_WIRE`,
+  when set, overrides the caller's wire, as in the JAX reader.  The delta
+  wires are not ported (ROADMAP.md): they raise `InvalidWire`.
 - Iterating a `TrajReader` yields the System once per frame, holding
   that frame's positions, velocities, forces, box, step, time and
   precision (JAX `io/traj.py:822-891`); `read_frames` reads frames by
@@ -553,6 +554,7 @@ class TrajReader:
         return loader if self.progress is None else self._ticked(loader)
 
     def _loader(self, wire: str = "f32") -> "_PrefetchLoader":
+        wire = os.environ.get("GROAN_WIRE", wire)
         if wire not in ("f32", "q16", "auto"):
             raise ReadTrajError(f"unsupported wire format '{wire}' "
                                 "(f32, q16 or auto)", code="InvalidWire")

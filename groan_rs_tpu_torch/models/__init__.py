@@ -1,6 +1,7 @@
 """Composed analyses: the per-frame analysis pass, the conformational
 analyses of `structure.py`, the time-correlation and transport analyses
-of `dynamics.py` and the per-frame converters of `convert.py`."""
+of `dynamics.py`, the membrane and interfacial-water analyses of
+`membrane.py` and the per-frame converters of `convert.py`."""
 
 from .convert import (
     CenterConverter,
@@ -28,6 +29,17 @@ from .dynamics import (
     tcaf,
     vacf,
     vanhove,
+)
+from .membrane import (
+    densmap,
+    densorder,
+    h2order,
+    hydorder,
+    leaflets,
+    order_parameters,
+    potential_profile,
+    sorient,
+    spol,
 )
 from .pipeline import PipelineRunner, TrajectoryAnalysis, run_many
 from .structure import (
@@ -59,4 +71,6 @@ __all__ = ["PipelineRunner", "TrajectoryAnalysis", "run_many",
            "rmsd_matrix", "rmsdist", "rmsf", "rotmat", "subspace_overlap",
            "current", "diffusion", "dipole_corr", "dos", "filter_traj",
            "hbond_acf", "hbond_lifetime", "msd", "msd_mol", "rotacf", "tcaf",
-           "vacf", "vanhove"]
+           "vacf", "vanhove",
+           "densmap", "densorder", "h2order", "hydorder", "leaflets",
+           "order_parameters", "potential_profile", "sorient", "spol"]

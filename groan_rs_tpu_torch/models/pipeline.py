@@ -1246,7 +1246,11 @@ def _resident_group_pos(system, trajectory, group, batch_size,
     return gsel, pos, boxes, dt
 
 
+_E_OVER_EPS0_NM = 18.0951262     # e/(eps0 * nm) in volts (CODATA 2018)
+
 _BOLTZ = 8.3144626e-3       # Boltzmann constant, kJ / (mol K)
+
+_AXIS = {"x": 0, "y": 1, "z": 2}
 
 _AMU_NM_PS_TO_PAS = 1.66053906660e-6   # amu/(nm ps) -> Pa s
 
@@ -1375,6 +1379,9 @@ _SPLIT_MODULES.update({name: "dynamics" for name in (
     "_hbond_curve", "_hbond_h_matrix", "current", "diffusion", "dipole_corr",
     "dos", "filter_traj", "hbond_acf", "hbond_lifetime", "msd", "msd_mol",
     "rotacf", "tcaf", "vacf", "vanhove")})
+_SPLIT_MODULES.update({name: "membrane" for name in (
+    "_water_sites", "densmap", "densorder", "h2order", "hydorder", "leaflets",
+    "order_parameters", "potential_profile", "sorient", "spol")})
 
 
 def __getattr__(name):

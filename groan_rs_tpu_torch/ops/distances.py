@@ -249,11 +249,12 @@ def residue_min_matrix(pos, boxes, block_idx, block_mask, *, chunk: int = 16):
     pos `[F, K, 3]`; boxes `[F, 3]` lengths or `[F, 3, 3]` matrices (the
     exact 27-image minimum image); block_idx `[R, P]` atom indices into K,
     padded; block_mask `[R, P]` validity -> `[F, R, R]`.  Rows go `chunk`
-    residues at a time (fewer where one row's `[R, P, P, 3]` tile is large)
-    over as many frames as keep the `[frames, chunk, R, P, P, 3]`
-    displacement tile within `_TILE_ELEMS` elements (the JAX function maps
+    residues at a time and columns as many as fit, over as many frames as
+    keep the `[frames, rows, cols, P, P, 3]` displacement tile within
+    `_TILE_ELEMS` elements: where one row's `[R, P, P, 3]` is larger, the
+    columns split too, down to one residue pair (the JAX function maps
     over frames one at a time; the tile of one frame is its
-    `[chunk, R, P, P, 3]`)."""
+    `[chunk, R, P, P, 3]`).  A minimum does not depend on the split."""
     pos = torch.as_tensor(pos, dtype=torch.float32)
     dev = pos.device
     boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
@@ -264,23 +265,29 @@ def residue_min_matrix(pos, boxes, block_idx, block_mask, *, chunk: int = 16):
     g = pos[:, bi]                                        # [F, R, P, 3]
     out = torch.empty((f, r, r), dtype=torch.float32, device=dev)
     big = torch.tensor(1e30, dtype=torch.float32, device=dev)
-    per_row = r * p * p * 3
-    chunk = max(1, min(chunk, _TILE_ELEMS // per_row))
-    fb = max(1, _TILE_ELEMS // (min(chunk, r) * per_row))
+    per_pair = p * p * 3
+    cols = min(r, max(1, _TILE_ELEMS // per_pair))
+    chunk = min(r, max(1, min(chunk, _TILE_ELEMS // (cols * per_pair))))
+    fb = max(1, _TILE_ELEMS // (chunk * cols * per_pair))
     triclinic = boxes.dim() == 3
     for f0 in range(0, f, fb):
         gf, bx = g[f0:f0 + fb], boxes[f0:f0 + fb]
         hinv = box_inverse(bx) if triclinic else None
         for r0 in range(0, r, chunk):
             ga = gf[:, r0:r0 + chunk]                     # [b, C, P, 3]
-            d = ga[:, :, None, :, None, :] - gf[:, None, :, None, :, :]
-            if triclinic:                                 # [b, C, R, P, P]
-                d2 = min_image_norm2_frames(d.reshape(d.shape[0], -1, 3), bx,
-                                            hinv).reshape(d.shape[:-1])
-            else:
-                d = min_image(d, bx[:, None, None, None, None, :])
-                d2 = (d * d).sum(-1)
-            valid = bm[r0:r0 + chunk, None, :, None] & bm[None, :, None, :]
-            d2 = torch.where(valid, d2, big)
-            out[f0:f0 + fb, r0:r0 + chunk] = torch.sqrt(d2.amin((-2, -1)))
+            for c0 in range(0, r, cols):
+                gc = gf[:, c0:c0 + cols]                  # [b, Rc, P, 3]
+                d = ga[:, :, None, :, None, :] - gc[:, None, :, None, :, :]
+                if triclinic:                             # [b, C, Rc, P, P]
+                    d2 = min_image_norm2_frames(
+                        d.reshape(d.shape[0], -1, 3), bx, hinv
+                    ).reshape(d.shape[:-1])
+                else:
+                    d = min_image(d, bx[:, None, None, None, None, :])
+                    d2 = (d * d).sum(-1)
+                valid = (bm[r0:r0 + chunk, None, :, None]
+                         & bm[None, c0:c0 + cols, None, :])
+                d2 = torch.where(valid, d2, big)
+                out[f0:f0 + fb, r0:r0 + chunk, c0:c0 + cols] = torch.sqrt(
+                    d2.amin((-2, -1)))
     return out

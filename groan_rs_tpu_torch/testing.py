@@ -74,6 +74,14 @@ shell edge), fits (`host_fit`), and `host_dos`, `host_tcaf`,
 `host_filtered`, `host_unit_vectors`, `host_dipole_paths`,
 `host_molecular_dipoles`; `current_bound` states what float32 rounding
 may move the conductivity's mean-squared dipole by.
+
+For the membrane and interfacial-water analyses (`models/membrane.py`):
+`host_leaflets`, `host_densmap`, `host_potential`, `host_interfaces`,
+`host_sorient`, `host_h2order`, `host_spol` and `host_hydorder` (a
+periodic `cKDTree` query).  Where a float32 value may land in another bin
+than its float64 value, they return the sure sums and a slack: a result
+is right where |got - sure| <= slack.  `potential_gap_bound` states what
+a charge-density gap moves the field and the potential by.
 """
 
 from __future__ import annotations
@@ -107,7 +115,10 @@ __all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host
            "host_msd", "host_msd_axes", "host_lag_corr", "host_lag_corrs", "host_fit", "host_com_paths",
            "host_unit_vectors", "host_dipole_paths", "current_bound",
            "host_vanhove", "host_filtered", "host_dos", "host_tcaf",
-           "host_molecular_dipoles"]
+           "host_molecular_dipoles", "host_leaflets", "host_densmap",
+           "host_potential", "host_interfaces", "host_sorient",
+           "potential_gap_bound",
+           "host_h2order", "host_spol", "host_hydorder"]
 
 
 def host_refined_center(p, box, w=None):
@@ -1851,3 +1862,303 @@ def host_molecular_dipoles(p, boxes, mol, w, q):
         d = rel - com[inv]
         out[f] = np.stack([np.bincount(inv, q * d[:, a], m) for a in range(3)], 1)
     return total, out
+
+
+# ------------------------------------------ membrane and interfacial water
+# (`models/membrane.py`), float64, written from the JAX docstrings
+
+
+def host_leaflets(z, lz, tol: float = 1e-5):
+    """Leaflets of head coordinates `z` [F, L] along a box axis of lengths
+    `lz` [F]: the circular-mean centre, each head's minimum-image
+    displacement from it signs its leaflet (+1 at or above) -> (leaflet
+    [F, L], thickness [F], centre [F] in [0, lz), near [F, L]: heads within
+    `tol` nm of the centre or of the half-box point, whose float32 sign may
+    differ)."""
+    z = np.asarray(z, np.float64)
+    lz = np.asarray(lz, np.float64)[:, None]
+    theta = np.mod(z, lz) * (2 * np.pi / lz)
+    c = (np.arctan2(-np.sin(theta).mean(1), -np.cos(theta).mean(1)) + np.pi) \
+        * lz[:, 0] / (2 * np.pi)
+    d = z - c[:, None]
+    d -= lz * np.round(d / lz)
+    up = d >= 0
+    thick = (np.where(up, d, 0.0).sum(1) / np.maximum(up.sum(1), 1)
+             - np.where(up, 0.0, d).sum(1) / np.maximum((~up).sum(1), 1))
+    near = (np.abs(d) < tol) | (np.abs(np.abs(d) - lz / 2) < tol)
+    return np.where(up, 1, -1), thick, np.mod(c, lz[:, 0]), near
+
+
+def _hist_slack(x, w, lo: float, width: float, n: int, tol):
+    """Histogram of values `x` with weights `w` into `n` bins of `width`
+    from `lo`, the index clipped to [0, n) -> (sure [n]: the values away
+    from every edge, slack [n]: |w| of each value within `tol` (absolute,
+    scalar or per value) of an edge, added to both bins it may fall in)."""
+    x = np.asarray(x, np.float64).reshape(-1)
+    w = np.broadcast_to(np.asarray(w, np.float64), x.shape).reshape(-1)
+    tol = np.broadcast_to(np.asarray(tol, np.float64), x.shape).reshape(-1)
+    u = (x - lo) / width
+    k = np.round(u)
+    near = np.abs(u - k) * width < tol
+    b = np.clip(np.floor(u), 0, n - 1).astype(np.int64)
+    sure = np.bincount(b[~near], w[~near], n)
+    slack = np.zeros(n)
+    for c in (k[near] - 1, k[near]):
+        np.add.at(slack, np.clip(c, 0, n - 1).astype(np.int64), np.abs(w[near]))
+    return sure, slack
+
+
+def host_densmap(frames, boxes, i1: int, i2: int, nx: int, ny: int, w,
+                 tol: float = 1e-5):
+    """2-D density map of `frames` [F, K, 3] over the fractional tiles of
+    their boxes ([F, 3] lengths or [F, 3, 3] matrices) on axes `i1`, `i2`
+    -> (counts, density, counts_slack, density_slack) [nx, ny]: weights
+    summed per tile, and weight * nx * ny / volume averaged over frames.
+    With lengths the tile index follows the device's float32 rule (x / L,
+    minus its floor, times n, truncated), so the slack is zero; with
+    matrices the fractional coordinates are float64 and an atom within
+    `tol` nm of a tile edge goes to the slack of every tile it may fall in."""
+    frames = np.asarray(frames)
+    b = np.asarray(boxes, np.float64)
+    w = np.asarray(w, np.float64)
+    f = frames.shape[0]
+    out = [np.zeros((nx, ny)) for _ in range(4)]
+    for i in range(f):
+        if b.ndim == 2:
+            p32 = np.asarray(frames[i], np.float32)
+            fr = p32 / b[i].astype(np.float32)
+            fr = fr - np.floor(fr)
+            ix = np.clip((fr[:, i1] * np.float32(nx)).astype(np.int32), 0, nx - 1)
+            iy = np.clip((fr[:, i2] * np.float32(ny)).astype(np.int32), 0, ny - 1)
+            near = np.zeros(ix.shape, bool)
+            vol = np.prod(b[i])
+            lens = None
+        else:
+            s = np.asarray(frames[i], np.float64) @ np.linalg.inv(b[i])
+            s -= np.floor(s)
+            lens = np.linalg.norm(b[i], axis=1)
+            u, v = s[:, i1] * nx, s[:, i2] * ny
+            nu = np.abs(u - np.round(u)) * lens[i1] / nx < tol
+            nv = np.abs(v - np.round(v)) * lens[i2] / ny < tol
+            near = nu | nv
+            ix = np.clip(np.floor(u), 0, nx - 1).astype(np.int64)
+            iy = np.clip(np.floor(v), 0, ny - 1).astype(np.int64)
+            vol = abs(np.linalg.det(b[i]))
+        scale = nx * ny / vol
+        flat = (ix * ny + iy)[~near]
+        out[0] += np.bincount(flat, w[~near], nx * ny).reshape(nx, ny)
+        out[1] += np.bincount(flat, w[~near] * (scale / f), nx * ny).reshape(nx, ny)
+        if near.any():
+            # a near axis has the two tiles about its edge (modulo the
+            # periodic wrap), a sure one its own tile once
+            cu = [np.where(nu, np.round(u) - k, ix)[near] for k in (1, 0)]
+            cv = [np.where(nv, np.round(v) - k, iy)[near] for k in (1, 0)]
+            aw = np.abs(w[near])
+            for a in (0, 1):
+                for c in (0, 1):
+                    keep = ((a == 0) | nu[near]) & ((c == 0) | nv[near])
+                    ci = np.mod(cu[a][keep], nx).astype(np.int64)
+                    cj = np.mod(cv[c][keep], ny).astype(np.int64)
+                    np.add.at(out[2], (ci, cj), aw[keep])
+                    np.add.at(out[3], (ci, cj), aw[keep] * scale / f)
+    return tuple(out)
+
+
+def potential_gap_bound(rho_gap, box_len: float, n_bins: int):
+    """What a gap `rho_gap` [n_bins] of the mean charge density moves the
+    potential profile's field and psi by, through their cumulative sums
+    (a constant box: the frame mean commutes with them) -> (field bound,
+    psi bound), each plus 1e-9 for the float64 sums."""
+    dz = box_len / n_bins
+    field = 18.0951262 * np.cumsum(np.abs(rho_gap)) * dz + 1e-9
+    return field, np.cumsum(field) * dz + 1e-9
+
+
+def host_potential(frames, boxes, q, axis: int, n_bins: int) -> dict:
+    """Electrostatic potential profile of `frames` [F, N, 3] in box lengths
+    [F, 3] with charges `q`: the charge density per slab
+    (`host_density_profile`), E = (e / eps0) cumsum(rho) dz and
+    psi = -cumsum(E) dz per frame, averaged -> {'rho', 'field', 'psi'}."""
+    e_over_eps0 = 18.0951262  # V nm per (e / nm^3) nm^2: e / (eps0 nm)
+    b = np.asarray(boxes, np.float64)
+    rho = np.stack([host_density_profile(frames[i], b[i], axis, n_bins, q)
+                    for i in range(b.shape[0])])
+    dz = b[:, axis] / n_bins
+    field = e_over_eps0 * np.cumsum(rho, 1) * dz[:, None]
+    psi = -np.cumsum(field, 1) * dz[:, None]
+    return {"rho": rho.mean(0), "field": field.mean(0), "psi": psi.mean(0)}
+
+
+def host_interfaces(prof, box_len, threshold: float):
+    """The two positions (nm) where each frame's profile `prof` [F, bins]
+    crosses `threshold` times its maximum, scanning inward from each box
+    edge with linear interpolation between slab centres (the edge slab's
+    centre when the profile is above the level there) -> (lower, upper)."""
+    prof = np.asarray(prof, np.float64)
+    f, n = prof.shape
+    centers = (np.arange(n) + 0.5) / n
+    lower, upper = np.full(f, np.nan), np.full(f, np.nan)
+    for i in range(f):
+        p = prof[i]
+        lvl = threshold * p.max()
+        above = np.flatnonzero(p >= lvl)
+        if p.max() <= 0 or not above.size:
+            continue
+        j0, j1 = above[0], above[-1]
+        lo = (centers[j0 - 1] + (lvl - p[j0 - 1]) / (p[j0] - p[j0 - 1]) / n
+              if j0 > 0 else centers[0])
+        hi = (centers[j1] + (p[j1] - lvl) / (p[j1] - p[j1 + 1]) / n
+              if j1 < n - 1 else centers[-1])
+        lower[i], upper[i] = lo * box_len[i], hi * box_len[i]
+    return lower, upper
+
+
+def _water_bonds(po, ph1, ph2, box):
+    b = np.asarray(box, np.float64)
+    po = np.asarray(po, np.float64)
+    return (po, _mi(np.asarray(ph1, np.float64) - po, b),
+            _mi(np.asarray(ph2, np.float64) - po, b))
+
+
+def _unit(v):
+    return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-300)
+
+
+def host_sorient(po, ph1, ph2, pref, w_ref, boxes, rmin: float, rmax: float,
+                 nb: int, delta=0.0, tol: float = 1e-5) -> dict:
+    """`gmx sorient` sums over frames: oxygens `po` and hydrogens `ph1`,
+    `ph2` [F, W, 3], the reference group `pref` [F, K, 3] with weights
+    `w_ref`, boxes [F, 3] or [F, 3, 3].  The reference centre is
+    `host_refined_center` (or its triclinic form).  Returns the sums 'h1',
+    'h2', 'rs', 'rn' [nb] (sure parts) with their '*_slack', and 's1',
+    's2', 'n' with 's1_slack', 's2_slack', 'n_slack': a water within `tol`
+    nm (plus `delta`, the float32 centre's distance from this one) of rmin
+    or rmax may be in or out of the shell, and a cosine, uncertain by `tol`
+    plus delta / r (the outward vector turns by that much), may be in
+    either bin about an edge; the sums' slacks add that uncertainty."""
+    b = np.asarray(boxes, np.float64)
+    tri = b.ndim == 3
+    acc = {k: np.zeros(nb) for k in ("h1", "h2", "rs", "rn", "h1_slack",
+                                      "h2_slack", "rs_slack", "rn_slack")}
+    acc.update({k: 0.0 for k in ("s1", "s2", "n", "s1_slack", "s2_slack", "n_slack")})
+    delta = np.broadcast_to(np.asarray(delta, np.float64), (b.shape[0],))
+    for f in range(b.shape[0]):
+        ctr = host_refined_center_triclinic if tri else host_refined_center
+        com = ctr(pref[f], b[f], w_ref)
+        o, b1, b2 = _water_bonds(po[f], ph1[f], ph2[f], b[f])
+        out_v = _mi(o - com, b[f])
+        r = np.linalg.norm(out_v, axis=-1)
+        ou = _unit(out_v)
+        c1 = (_unit(b1 + b2) * ou).sum(-1)
+        c2 = np.stack([(_unit(b1) * ou).sum(-1), (_unit(b2) * ou).sum(-1)])
+        rt = tol + delta[f]
+        ct = tol + delta[f] / np.maximum(r, 1e-3)
+        shell_near = (np.abs(r - rmin) < rt) | (np.abs(r - rmax) < rt)
+        sel = (r > rmin) & (r <= rmax) & ~shell_near
+        for key, vals in (("h1", c1[None]), ("h2", c2)):
+            for v in vals:
+                sure, slack = _hist_slack(v, sel, -1.0, 2.0 / nb, nb, ct)
+                acc[key] += sure
+                acc[key + "_slack"] += slack + _hist_slack(
+                    v, shell_near, -1.0, 2.0 / nb, nb, np.inf)[1]
+        acc["s1"] += (c1 * sel).sum()
+        acc["s2"] += (c2.sum(0) * sel).sum()
+        acc["n"] += sel.sum()
+        acc["s1_slack"] += np.abs(c1[shell_near]).sum() + ct[sel].sum()
+        acc["s2_slack"] += np.abs(c2[:, shell_near]).sum() + 2 * ct[sel].sum()
+        acc["n_slack"] += shell_near.sum()
+        inr_near = np.abs(r - rmax) < rt
+        inr = (r <= rmax) & ~inr_near
+        for key, wv in (("rs", c1), ("rn", np.ones_like(c1))):
+            sure, slack = _hist_slack(r, wv * inr, 0.0, rmax / nb, nb, rt)
+            acc[key] += sure
+            acc[key + "_slack"] += slack + _hist_slack(
+                r, wv * inr_near, 0.0, rmax / nb, nb, np.inf)[1]
+        acc["rs_slack"] += _hist_slack(r, ct * inr, 0.0, rmax / nb, nb, 0.0)[0]
+    return acc
+
+
+def host_h2order(po, ph1, ph2, boxes, axis: int, nb: int) -> dict:
+    """`gmx h2order` sums over frames: per slab of the oxygens' fractional
+    coordinate along `axis` (the device's float32 rule, so no water sits
+    on the other side of an edge), the count and the sum of the cosine
+    between the dipole bisector and +axis -> {'cs', 'cn'} [nb]."""
+    b = np.asarray(boxes, np.float64)
+    cs, cn = np.zeros(nb), np.zeros(nb)
+    for f in range(b.shape[0]):
+        o, b1, b2 = _water_bonds(po[f], ph1[f], ph2[f], b[f])
+        c = _unit(b1 + b2)[:, axis]
+        period = np.float32(b[f][axis, axis] if b.ndim == 3 else b[f][axis])
+        zf = np.asarray(po[f], np.float32)[:, axis] / period
+        zf = zf - np.floor(zf)
+        i = np.clip((zf * np.float32(nb)).astype(np.int32), 0, nb - 1)
+        cs += np.bincount(i, c, nb)
+        cn += np.bincount(i, minlength=nb)
+    return {"cs": cs, "cn": cn}
+
+
+def host_spol(units, w_units, q_units, pref, w_ref, boxes, rmax: float,
+              nb: int, delta=0.0, tol: float = 1e-5) -> dict:
+    """`gmx spol` sums over frames: solvent molecules `units` [F, U, P, 3]
+    with mass weights `w_units` [U, P] (normalised per molecule) and
+    charges `q_units` [U, P], made whole around their first atom; the
+    dipole about each molecule's COM against the min-image vector from the
+    reference group's refined centre (`host_refined_center` of `pref`
+    [F, K, 3] weighted by `w_ref`).  Returns 'cs', 'cn' [nb] (sure parts,
+    shells of r over (0, rmax]) and 'cs_slack', 'cn_slack': a molecule
+    within `tol` nm (plus `delta`) of a shell edge counts in both shells,
+    and each cosine is uncertain by `tol` plus delta / r."""
+    b = np.asarray(boxes, np.float64)
+    tri = b.ndim == 3
+    w_u = np.asarray(w_units, np.float64)[..., None]
+    q_u = np.asarray(q_units, np.float64)[..., None]
+    delta = np.broadcast_to(np.asarray(delta, np.float64), (b.shape[0],))
+    out = {k: np.zeros(nb) for k in ("cs", "cn", "cs_slack", "cn_slack")}
+    for f in range(b.shape[0]):
+        ctr = host_refined_center_triclinic if tri else host_refined_center
+        ref = ctr(pref[f], b[f], w_ref)
+        x = np.asarray(units[f], np.float64)
+        rel = _mi(x - x[:, :1], b[f])
+        com_rel = (w_u * rel).sum(1)
+        dip = (q_u * (rel - com_rel[:, None])).sum(1)
+        rv = _mi(x[:, 0] + com_rel - ref, b[f])
+        r = np.linalg.norm(rv, axis=-1)
+        c = (dip * rv).sum(-1) / np.maximum(r * np.linalg.norm(dip, axis=-1), 1e-300)
+        rt = tol + delta[f]
+        edge = (np.abs(r - rmax) < rt) | (r < rt)
+        sel = (r > 0) & (r <= rmax) & ~edge
+        for key, wv in (("cs", c), ("cn", np.ones_like(c))):
+            sure, slack = _hist_slack(r, wv * sel, 0.0, rmax / nb, nb, rt)
+            out[key] += sure
+            out[key + "_slack"] += slack + _hist_slack(
+                r, wv * edge, 0.0, rmax / nb, nb, np.inf)[1]
+        ct = tol + delta[f] / np.maximum(r, 1e-3)
+        out["cs_slack"] += _hist_slack(r, ct * sel, 0.0, rmax / nb, nb, 0.0)[0]
+    return out
+
+
+def host_hydorder(p, box, tie_tol: float = 1e-5, workers: int = 1):
+    """Tetrahedral order of one frame's points `p` [W, 3] in the
+    orthorhombic `box` (3,): each point's 4 nearest periodic neighbours by
+    a `scipy.spatial.cKDTree(boxsize=box)` 5-nearest query, S_g = 1 - 3/8
+    sum_{j<k} (cos psi_jk + 1/3)^2 and S_k = 1 - sum (r_k - rbar)^2 /
+    (12 rbar^2) -> (sg [W], sk [W], tied [W]: points whose 4th and 5th
+    neighbour distances differ by less than `tie_tol` nm, where the
+    choice of the 4th is a tie)."""
+    from scipy.spatial import cKDTree
+
+    box = np.asarray(box, np.float64)
+    x = np.mod(np.asarray(p, np.float64), box)
+    x[x >= box] = 0.0
+    dist, idx = cKDTree(x, boxsize=box).query(x, k=6, workers=workers)
+    # column 0 is the point itself (distance 0)
+    nb = idx[:, 1:5]
+    v = _mi(x[nb] - x[:, None, :], box)
+    r = np.linalg.norm(v, axis=-1)
+    u = v / r[..., None]
+    iu, ju = np.triu_indices(4, 1)
+    cs = (u[:, iu] * u[:, ju]).sum(-1)
+    sg = 1.0 - 3.0 / 8.0 * ((cs + 1.0 / 3.0) ** 2).sum(-1)
+    rbar = r.mean(-1)
+    sk = 1.0 - ((r - rbar[:, None]) ** 2).sum(-1) / (12.0 * rbar ** 2)
+    return sg, sk, dist[:, 5] - dist[:, 4] < tie_tol

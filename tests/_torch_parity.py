@@ -149,3 +149,34 @@ def named_pairs(tmp_path_factory, n_frames: int = 12):
             s.group_create("CA", "Protein and name CA")
         out[form] = (xtc, js, ts)
     return out
+
+
+def frames_pair(path, frames, box, groups, *, boxes=None, precision=100000,
+                **columns):
+    """(XTC path, JAX System, port System on the CPU) of hand-built frames
+    `[F, N, 3]` written to `path`: `box` the System's box ((3,) lengths or
+    a (3, 3) matrix), `boxes` optional per-frame `[F, 3]` lengths for the
+    file, `groups` {name: indices}; `columns` the optional state columns
+    (mass, charge, atomname, resnum, resname)."""
+    from groan_rs_tpu_torch.io import native
+
+    frames = np.asarray(frames, np.float32)
+    f, n = frames.shape[:2]
+    box = np.asarray(box, np.float32)
+    for i in range(f):
+        b9 = (box.reshape(9) if box.shape == (3, 3) else
+              np.diag(box if boxes is None else np.asarray(boxes, np.float32)[i]).reshape(9))
+        native.xtc_write_frame(str(path), n, i, float(i), b9, frames[i], float(precision))
+    state = {"positions": frames[0], "box": box, "precision": precision,
+             "mass": np.ones(n, np.float32), "has_mass": np.ones(n, bool),
+             "groups": {k: np.asarray(v, np.int64) for k, v in groups.items()}}
+    for key, val in columns.items():
+        state[key] = np.asarray(val)
+    if "charge" in columns:
+        state["has_charge"] = np.ones(n, bool)
+    jsys = jax_system(state)
+    from groan_rs_tpu_torch import convert
+
+    tsys = convert.system_from_state(state_from_jax_system(jsys, groups), device="cpu")
+    tsys.topology.atomnum = jsys.topology.atomnum.copy()
+    return str(path), jsys, tsys

@@ -107,6 +107,38 @@ def test_residue_min_matrix_frame_blocks(monkeypatch):
         assert np.abs(got - want).max() <= 1e-5
 
 
+
+@pytest.mark.parametrize("form", FORMS)
+def test_residue_min_matrix_tile_bound(monkeypatch, form):
+    """A tile bound smaller than one row of `[R, P, P, 3]` splits the
+    column residues too: no displacement tile passes the bound, and the
+    values equal those of the unsplit call bit for bit."""
+    rng = np.random.default_rng(4)
+    pos = torch.from_numpy(rng.uniform(0, 3, (3, 40, 3)).astype(np.float32))
+    if form == "ortho":
+        boxes = torch.from_numpy(np.tile(np.float32([3.0, 3.0, 3.5]), (3, 1)))
+    else:
+        h = np.float32([[3.0, 0, 0], [1.0, 2.9, 0], [0.8, 0.6, 3.2]])
+        boxes = torch.from_numpy(np.tile(h, (3, 1, 1)))
+    idx = np.arange(40).reshape(10, 4)
+    mask = np.ones((10, 4), bool)
+    mask[6, 1:] = False
+    want = tdist.residue_min_matrix(pos, boxes, idx, mask).numpy()
+    tiles = []
+    wrapped = tdist.min_image if form == "ortho" else tdist.min_image_norm2_frames
+    name = "min_image" if form == "ortho" else "min_image_norm2_frames"
+
+    def spy(d, *args):
+        tiles.append(d.numel())
+        return wrapped(d, *args)
+
+    monkeypatch.setattr(tdist, name, spy)
+    bound = 2 * 4 * 4 * 3        # two residue pairs; one row is ten
+    monkeypatch.setattr(tdist, "_TILE_ELEMS", bound)
+    got = tdist.residue_min_matrix(pos, boxes, idx, mask, chunk=4).numpy()
+    assert tiles and max(tiles) <= bound
+    assert np.array_equal(got, want)
+
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("mode", ["molecule", "atom"])
 def test_clustsize(pairs, form, mode):
