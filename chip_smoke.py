@@ -198,10 +198,42 @@ Phases, each of which raises on failure (the run then exits non-zero):
    triclinic oracles with no kernel launch.  K1 and K2 launch once per
    frame chunk of each `sorient` and `spol` call (3 at 48 frames), K3
    never; its launches join the kernels' line.
+16. The geometric and surface analyses (`models/geometry.py`), 1M atoms,
+   each from its file name, on phase 15's System with guessed elements
+   (vdW radii) and +1 / -1 charges on the LYS/ARG and ASP/GLU residues:
+   `sasa` of the 99,000-atom Protein (frames 0-3, max_neighbors 128; the
+   cap is shown raising just below frame 0's largest relevant count),
+   `freevolume` of all atoms (8,192 probes, seed 0 and `points=`, frames
+   0-7), `sdf` of the 200,334 water oxygens around the Protein (4 nm,
+   40^3 voxels, number and mass, with and without the fit), `polystat` of
+   the 6,000 lipids, `helixorient` of the 9,900 C-alphas and of an ideal
+   alpha-helix, `bundle` of 20 segments, `dyecoupl`, `gangle` of the
+   200,333 whole waters (vectors and planes against z and t0), `pairdist`
+   (COM: the Protein's residues x the lipids over frames 0-3; min: 500 x
+   500 residues), `saltbr` over 1,000 residues, `select_dynamic` (waters
+   within 0.35 nm of the Protein with whole residues, frames 0-3; a
+   cylinder over all frames), `trjorder` of the whole waters around the
+   Protein (atom, min and com; shell 0.5 nm; frames 0-3; an `output=` XTC
+   read back), `pi_mindist` of the Peptide (48 frames) and of the Protein
+   (frames 0-1).  Against float64 oracles (`testing.py`, 4 threads):
+   sampled SASA, free fractions and SDF voxels equal but for values within
+   2e-5 nm of an edge; distances within 1e-4 nm (trjorder 1e-5, its order
+   equal but between molecules within 2e-5 nm); polystat within relative
+   1e-5; helix windows within `testing.host_helixorient`'s float32 bounds;
+   angles' cosines within the sites' float32 reach; the periodic-image
+   distances within rtol 2e-5 / atol 1e-5.  Resident windows equal the
+   file calls bit for bit; on phase 8's dodecahedron `sasa`, `freevolume`,
+   `select_dynamic` and `pi_mindist` against the triclinic oracles with no
+   kernel launch; `chi` on ideal residues with every side-chain
+   alternative (`testing.chi_state`) within 2e-2 degrees of float64.  K1
+   and K2 launch once per frame chunk of each of the four `sdf` calls
+   plus once each for frame 0's centre of the two fitted calls (6 at 48
+   frames), K3 never; its launches join the kernels' line.
 
 Phase 7 also prints the worst of the 1M-atom dihedral sites: its error,
 central bond, bend angles, lever arm, whether it crosses the box, and
-one float32 ulp over the lever arm (`testing.dihedral_worst_site`).
+one float32 ulp over the lever arm (`testing.dihedral_worst_site`);
+phase 9 finds the triclinic one, and phase 16 prints it.
 
 Every phase prints its seconds.  The last two stdout lines are the
 kernels' JSON record and the result line `{"ok": true, "device":
@@ -1065,7 +1097,8 @@ def triclinic_phase(torch, dev):
 
 
 def triclinic_observables_phase(torch, dev, main_pipe):
-    """Phase 9 -> (launch counts, its runner, its resident window)."""
+    """Phase 9 -> (launch counts, its runner, its resident window, its worst
+    dihedral site: `testing.dihedral_worst_site` on the box matrices)."""
     from groan_rs_tpu_torch import convert, testing
     from groan_rs_tpu_torch.core.dimension import Dimension
     from groan_rs_tpu_torch.core.shapes import Cylinder
@@ -1122,6 +1155,9 @@ def triclinic_observables_phase(torch, dev, main_pipe):
         f"{time.perf_counter() - t0:.1f} s")
     for k, (e, bound) in errs.items():
         check(e <= bound, f"{k} vs triclinic float64 oracle: {e:.3e} (bound {bound:g})")
+    tri_site = testing.dihedral_worst_site(out["dihedrals"][:2], coords, boxes)
+    say(f"  worst triclinic dihedral: frame {tri_site['frame']}, site {tri_site['site']}, "
+        f"error {tri_site['error']:.3e} deg, lever arm {tri_site['lever']:.4f} nm")
 
     t0 = time.perf_counter()
     dt = runner.load_device(xtc, batch_size=BATCH)
@@ -1162,7 +1198,7 @@ def triclinic_observables_phase(torch, dev, main_pipe):
         check(same, f"run_many equals run(dt) bit for bit ({len(want)} keys)")
     counts = dict(K.launch_counts)
     no_launches(counts, "triclinic observables (streamed, resident, run_many)")
-    return counts, runner, dt
+    return counts, runner, dt, tri_site
 
 
 def observables_phase(torch, xtc, offs, nat, frame0, box, main_pipe, dev):
@@ -3273,6 +3309,689 @@ def membrane_phase(torch, xtc, offs, nat, frame0, box, dev):
     return counts
 
 
+GEO_FRAMES = 4          # frames of the dense pair analyses (sasa, select, trjorder, pairdist)
+FREEVOL_FRAMES = 8      # frames of freevolume
+PI_PROTEIN_FRAMES = 2   # frames of pi_mindist over the Protein
+TRI_FRAMES = 2          # dodecahedron frames of the triclinic sasa, freevolume and select
+SASA_CAP = 128          # max_neighbors that holds on the synthetic Protein
+SASA_SMALL_CAP = 64     # the JAX default, too small for it: sasa raises
+SASA_SAMPLE = 500       # atoms a frame whose SASA the float64 oracle computes
+SALT_RESIDUES = 1000    # Protein residues of saltbr
+MIN_RESIDUES = 500      # residues on each side of pairdist(mode="min")
+GEO_TOL = 1e-4          # nm (and cosines): float32 of 1M-atom coordinates against float64
+TRJ_TOL = 1e-5          # nm: trjorder's distances (pairdist's tolerance in the JAX tests)
+
+
+def _frame_copy(xtc, offs, n, tag):
+    """The first `n` frames of `xtc`, byte for byte, in the build directory."""
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    path = os.path.join(K.BUILD_DIR, f"smoke_geo_{tag}_{n}.xtc")
+    with open(xtc, "rb") as src, open(path, "wb") as dst:
+        dst.write(src.read(int(offs[n]) if n < len(offs) else -1))
+    return path
+
+
+def _geometry_system(frame0, box, dev):
+    """Phase 14's full topology with `testing.named_layout`'s residues and
+    names, guessed elements and vdW radii, the layout's bonds, and Protein
+    charges of +1 on every LYS/ARG residue and -1 on every ASP/GLU residue
+    (on its N), zero elsewhere -> (System, charged residue names)."""
+    import warnings
+
+    from groan_rs_tpu_torch import convert, testing
+
+    state = testing.synthetic_state(frame0.copy(), box, topology="full")
+    names = testing.named_layout(frame0.shape[0])
+    state.update({k: names[k] for k in ("resnum", "resname", "atomname")})
+    n_prot = testing.synthetic_layout(frame0.shape[0])["n_prot"]
+    q = state["charge"].copy()
+    q[:n_prot] = 0.0
+    first = np.arange(0, n_prot, testing.RESIDUE_SIZE)
+    rn = names["resname"][first]
+    q[first] = np.where(np.isin(rn, ("LYS", "ARG")), 1.0,
+                        np.where(np.isin(rn, ("ASP", "GLU")), -1.0, 0.0))
+    state["charge"] = q
+    system = convert.system_from_state(state, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        system.guess_elements()
+    return system
+
+
+def _chi_on_card(dev):
+    """`models.chi` on ideal residues with full side chains
+    (`testing.chi_state`: every alternative of the chi site table) on the
+    card against the placed angles and float64 dihedrals."""
+    from groan_rs_tpu_torch import convert, testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    st = testing.chi_state(20, 4)
+    frames = st["frames"].astype(np.float32)
+    path = os.path.join(K.BUILD_DIR, "smoke_chi.xtc")
+    if os.path.exists(path):
+        os.unlink(path)
+    for f in range(frames.shape[0]):
+        native.xtc_write_frame(path, frames.shape[1], f, float(f),
+                               np.diag(st["box"]).astype(np.float32).reshape(9), frames[f],
+                               100000.0)
+    n = frames.shape[1]
+    system = convert.system_from_state({
+        "positions": frames[0], "box": st["box"].astype(np.float32),
+        "mass": np.ones(n, np.float32), "has_mass": np.ones(n, bool), "precision": 100000,
+        "atomname": st["atomname"], "resname": st["resname"], "resnum": st["resnum"],
+        "groups": {}}, device=dev)
+    out = M.chi(system, path, "all", max_chi=4)
+    q = native.xtc_read_frames(path, native.xtc_scan(path)[0], n)[0].astype(np.float64)
+    for k in range(1, 5):
+        got = out[f"chi{k}"]
+        placed = np.abs((got - st["chi"][k] + 180.0) % 360.0 - 180.0).max()
+        host = testing.dihedrals_host_f64(*(q[:, st["sites"][k][:, i]] for i in range(4)),
+                                          np.repeat(st["box"][None], q.shape[0], 0))
+        e = np.abs((got - host + 180.0) % 360.0 - 180.0).max()
+        # the placed angles: the XTC's 1e-5 nm grid moves each atom by up to
+        # 8.7e-6 nm, 3.5e-3 deg over a 0.14 nm lever arm, four atoms a site
+        check(got.shape == st["chi"][k].shape and e <= 2e-2 and placed <= 3e-2,
+              f"chi{k} on the card: {got.shape[1]} residues x {got.shape[0]} frames within "
+              f"2e-2 deg of float64 ({e:.2e}) and 3e-2 of the placed angles ({placed:.2e})")
+    os.unlink(path)
+
+
+def geometry_phase(torch, xtc, offs, nat, frame0, box, dev, tri_site=None):
+    """Phase 16: the geometric and surface analyses of `models/geometry.py`
+    over phase 4's XTC -> the K1/K2/K3 launches of its main path (predicted:
+    one K1 and one K2 a frame chunk of each `sdf` call, plus one each for
+    frame 0's centre when it fits; no K3)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.core.dimension import Dimension
+    from groan_rs_tpu_torch.core.shapes import Cylinder
+    from groan_rs_tpu_torch.errors import ParallelError
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import center as C
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.ops import sasa as sasa_ops
+    from groan_rs_tpu_torch.utils import threefry
+
+    say(f"phase 16: geometric and surface analyses, {nat} atoms x {N_FRAMES} frames")
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    lay = testing.synthetic_layout(nat)
+    n_prot, w0 = lay["n_prot"], lay["w0"]
+    n_whole = (nat - w0) // 3
+    system = _geometry_system(frame0, box, dev)
+    system.group_create_from_indices("WW", np.arange(w0, w0 + 3 * n_whole))
+    system.group_create("OW", "Water and name OW")
+    system.group_create("CA", "Protein and name CA")
+    system.group_create("PN", "Protein and name N")
+    n_res = n_prot // testing.RESIDUE_SIZE
+    n_axes = max(a for a in range(1, 21) if n_res % a == 0)   # 20 at 1M atoms
+    salt_atoms = min(SALT_RESIDUES, n_res) * testing.RESIDUE_SIZE
+    system.group_create_from_indices("Salt", np.arange(salt_atoms))
+    half = min(MIN_RESIDUES, n_res // 2) * testing.RESIDUE_SIZE
+    system.group_create_from_indices("MinA", np.arange(half))
+    system.group_create_from_indices("MinB", np.arange(half, 2 * half))
+    check(system.topology.has_vdw.all(), "guess_elements gives every atom a vdW radius")
+    n_geo = min(GEO_FRAMES, N_FRAMES)
+    gxtc = _frame_copy(xtc, offs, n_geo, "dense")
+    fxtc = _frame_copy(xtc, offs, min(FREEVOL_FRAMES, N_FRAMES), "free")
+    one = _frame_copy(xtc, offs, 1, "one")
+    times = native.xtc_scan(xtc)[2]
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    # the cap: frame 0's largest relevant-neighbour count, then sasa raises
+    # exactly below it (the JAX default of 64 among the caps tried)
+    p0 = torch.from_numpy(native.xtc_read_frames(one, offs[:1], nat, stop_after=n_prot)[0])
+    _, n_rel = sasa_ops.sasa_frames(p0.to(dev), torch.from_numpy(box[None]).to(dev),
+                                    system.topology.vdw[:n_prot], max_neighbors=SASA_CAP)
+    del p0
+    say(f"  sasa: the largest relevant-neighbour count of frame 0's {n_prot} Protein atoms "
+        f"is {n_rel}")
+    for cap in sorted({SASA_SMALL_CAP, n_rel - 1, n_rel}):
+        try:
+            M.sasa(system, one, "Protein", max_neighbors=cap, batch_size=BATCH)
+            cap_err = None
+        except ParallelError as e:
+            cap_err = str(e)
+        want = cap < n_rel
+        check((cap_err is not None) == want and (not want or f"had {n_rel} relevant" in cap_err),
+              f"sasa at max_neighbors={cap} {'raises ParallelError' if want else 'holds'} "
+              f"({cap_err})")
+    check(n_rel <= SASA_CAP, f"the main path's max_neighbors={SASA_CAP} holds ({n_rel})")
+
+    # ---- the phase's main path: what a user calls, from the file names -----
+    K.reset_launch_counts()
+    t_main = time.perf_counter()
+    sa = timed(f"sasa Protein ({n_geo} frames)", lambda: M.sasa(
+        system, gxtc, "Protein", max_neighbors=SASA_CAP, batch_size=BATCH))
+    n_free = min(FREEVOL_FRAMES, N_FRAMES)
+    fv = timed(f"freevolume all ({n_free} frames)", lambda: M.freevolume(
+        system, fxtc, "all", n_samples=8192, seed=0, batch_size=BATCH))
+    pts = threefry.uniform(1, (n_free, 8192, 3))
+    fvp = timed("freevolume all points=", lambda: M.freevolume(
+        system, fxtc, "all", points=pts, batch_size=BATCH))
+    sdfs = {(w, fit): timed(f"sdf OW {w} fit={fit}", lambda w=w, fit=fit: M.sdf(
+        system, xtc, "OW", "Protein", side=4.0, bins=40, fit=fit, weights=w,
+        batch_size=BATCH)) for w in ("number", "mass") for fit in (False, True)}
+    ps = timed("polystat Membrane", lambda: M.polystat(system, xtc, "Membrane",
+                                                       batch_size=BATCH))
+    hx = timed("helixorient CA", lambda: M.helixorient(system, xtc, "CA", batch_size=BATCH))
+    bu = timed(f"bundle {n_axes} segments", lambda: M.bundle(
+        system, xtc, "CA", "PN", n_axes=n_axes, batch_size=BATCH))
+    dye = (f"serial 1 5", f"serial {n_prot // 2 + 1} {n_prot // 2 + 5}")
+    dy = timed("dyecoupl", lambda: M.dyecoupl(system, xtc, *dye, r0=5.0, batch_size=BATCH))
+    ga = {(g1, g2): timed(f"gangle {g1} {g2}", lambda g1=g1, g2=g2: M.gangle(
+        system, xtc, "WW" if g1 == "plane" else "WW and name OW HW1", g1=g1, g2=g2,
+        batch_size=BATCH)) for g1 in ("vector", "plane") for g2 in ("z", "t0")}
+    pdc = timed(f"pairdist com Protein x POPC ({n_geo} frames)", lambda: M.pairdist(
+        system, gxtc, "Protein", "Membrane", mode="com", batch_size=BATCH))
+    pdm = timed(f"pairdist min {2 * half // 10} residues ({n_geo} frames)", lambda: M.pairdist(
+        system, gxtc, "MinA", "MinB", mode="min", batch_size=BATCH))
+    sb = timed("saltbr", lambda: M.saltbr(system, xtc, "Salt", batch_size=BATCH))
+    sel = timed(f"select within 0.35 whole_res ({n_geo} frames)", lambda: M.select_dynamic(
+        system, gxtc, "Water", within=0.35, of="Protein", whole_res=True, batch_size=BATCH))
+    cyl = Cylinder(*testing.cylinder_args(box), Dimension.Z)
+    sc = timed("select cylinder", lambda: M.select_dynamic(
+        system, xtc, "Water", shape=cyl, batch_size=BATCH))
+    tro = {m: timed(f"trjorder {m} ({n_geo} frames)", lambda m=m: M.trjorder(
+        system, gxtc, "Protein", "WW", mode=m, shell=0.5, batch_size=BATCH))
+        for m in ("atom", "min", "com")}
+    out_xtc = os.path.join(os.path.dirname(gxtc), "smoke_trjorder_out.xtc")
+    if os.path.exists(out_xtc):
+        os.unlink(out_xtc)
+    trw = timed("trjorder atom output=", lambda: M.trjorder(
+        system, gxtc, "Protein", "WW", mode="atom", output=out_xtc, batch_size=BATCH))
+    pip = timed("pi_mindist Peptide", lambda: M.pi_mindist(system, xtc, "Peptide",
+                                                           batch_size=BATCH))
+    n_pi = min(PI_PROTEIN_FRAMES, N_FRAMES)
+    pir = timed(f"pi_mindist Protein ({n_pi} frames)", lambda: M.pi_mindist(
+        system, xtc, "Protein", end_time=float(times[n_pi - 1]), batch_size=BATCH))
+    t_main = time.perf_counter() - t_main
+    counts = dict(K.launch_counts)
+    say("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    say(f"  the phase's main path: {t_main:.2f} s")
+    if cuda:
+        say(f"  max_memory_allocated over the main path: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    # the least time of each dense pair analysis: its pairs x FP32
+    # instructions over 3.35e13/s (132 SMs x 128 lanes x 1.98 GHz).  An
+    # orthorhombic |min image|^2 is 23 instructions (3 subtractions, 3 x 5
+    # of the image, 5 of the square sum); then sasa +4 (sqrt, the radius
+    # sum, compare, select), freevolume +2, select and trjorder +1 (the
+    # running minimum); pi_mindist 9 a shift (3 adds, 3 products, 2 sums,
+    # the minimum) x 26 shifts + 8 of the internal distance
+    n_sol = 3 * n_whole
+    pair_work = {
+        f"sasa Protein ({n_geo} frames)": (n_prot * n_prot, n_geo, 27),
+        f"freevolume all ({n_free} frames)": (8192 * nat, n_free, 25),
+        f"select within 0.35 whole_res ({n_geo} frames)": ((nat - w0) * n_prot, n_geo, 24),
+        f"trjorder atom ({n_geo} frames)": (n_whole * n_prot, n_geo, 24),
+        f"trjorder min ({n_geo} frames)": (n_sol * n_prot, n_geo, 24),
+        f"trjorder com ({n_geo} frames)": (n_whole * n_prot, n_geo, 24),
+        f"pi_mindist Protein ({n_pi} frames)": (n_prot * n_prot, n_pi, 9 * 26 + 8)}
+    pair_s = 0.0
+    for name, (pairs, frames, ops) in pair_work.items():
+        bound = pairs * frames * ops / 3.35e13
+        pair_s += secs[name]
+        say(f"  {name}: {pairs:.3e} pairs a frame, {ops} FP32 instructions a pair, bound "
+            f"{1e3 * bound:.1f} ms, measured {secs[name]:.2f} s = {100 * bound / secs[name]:.2f}% "
+            f"of bound, {100 * secs[name] / t_main:.1f}% of the main path")
+    say(f"  the dense pair analyses: {pair_s:.2f} s = {100 * pair_s / t_main:.1f}% of the "
+        "main path")
+    n_ow = int(system.group_indices("OW").size)
+    n_ctr = 4 * _chunks(3 * max(n_ow, n_prot), N_FRAMES) + 2
+    predicted = {"bai_breen_estimate": n_ctr, "bai_breen_refine": n_ctr, "pair_reduce": 0}
+    say(f"  launches {counts}, predicted {predicted}")
+    if cuda:
+        check(counts == predicted, "K1, K2 and K3 launched as the code predicts")
+    else:
+        no_launches(counts, "phase 16 on the CPU")
+
+    # ---- against float64 oracles --------------------------------------------
+    t_or = time.perf_counter()
+    coords, b9s = native.xtc_read_frames(xtc, offs[:N_FRAMES], nat)[:2]
+    boxes = b9s[:, [0, 4, 8]].astype(np.float64)
+    mass = system.topology.mass.astype(np.float64)
+    vdw = system.topology.vdw.astype(np.float64)
+    prot = np.arange(n_prot)
+    ow = system.group_indices("OW")
+    # the reference centre on the card (K1 + K2, outside the main path's count)
+    p_dev = torch.from_numpy(coords[:, :n_prot]).to(dev)
+    ctr = C.center(p_dev, torch.from_numpy(boxes.astype(np.float32)).to(dev),
+                   weights=mass[:n_prot].astype(np.float32)).cpu().numpy()
+    del p_dev
+    rng = np.random.default_rng(16)
+    rows = np.sort(rng.choice(n_prot, min(SASA_SAMPLE, n_prot), replace=False))
+    oracle_secs = {}
+
+    def timed_job(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        oracle_secs[name] = time.perf_counter() - t
+        return r
+
+    def sasa_oracle():
+        return [testing.host_sasa(coords[f, :n_prot], boxes[f], vdw[:n_prot] + 0.14, rows)
+                for f in range(n_geo)]
+
+    def free_oracle(u):
+        return [testing.host_free_points(u[f] * boxes[f].astype(np.float32), coords[f],
+                                         boxes[f], vdw)
+                for f in range(n_free)]
+
+    def sdf_oracle(w, fit):
+        sure, near_w, near_n = np.zeros(40 ** 3), 0.0, 0
+        ref0 = testing._mi(coords[0, :n_prot] - ctr[0].astype(np.float64), boxes[0])
+        for f in range(N_FRAMES):
+            off = testing._mi(coords[f, ow] - ctr[f].astype(np.float64), boxes[f])
+            if fit:
+                cur = testing._mi(coords[f, :n_prot] - ctr[f].astype(np.float64), boxes[f])
+                off = off @ testing.host_kabsch(cur, ref0, mass[:n_prot])[1].T
+            a, b, c = testing.host_sdf(off, 1.0 if w == "number" else mass[ow], 4.0, 40, 2e-5)
+            sure, near_w, near_n = sure + a, near_w + b, near_n + c
+        return sure, near_w, near_n
+
+    def unit_tables(blocks):
+        cols = np.stack(blocks)
+        w = mass[cols]
+        return cols, w / w.sum(1, keepdims=True)
+
+    res_cols, res_w = unit_tables(np.arange(n_prot).reshape(-1, testing.RESIDUE_SIZE))
+    mem_cols, mem_w = unit_tables(system.group_indices("Membrane").reshape(
+        -1, testing.LIPID_SIZE))
+
+    def pairdist_oracle():
+        sample = np.arange(0, res_cols.shape[0], max(1, res_cols.shape[0] // 200))
+        out = []
+        for f in range(n_geo):
+            a = testing.host_unit_means(coords[f], res_cols[sample], res_w[sample], boxes[f])
+            b = testing.host_unit_means(coords[f], mem_cols, mem_w, boxes[f])
+            d = testing._mi(a[:, None] - b[None], boxes[f])
+            out.append(np.sqrt((d * d).sum(-1)))
+        return sample, np.stack(out)
+
+    def trjorder_oracle():
+        sol = np.arange(w0, w0 + 3 * n_whole).reshape(-1, 3)
+        sc, sw = unit_tables(list(sol))
+        out = {"atom": [], "min": [], "com": []}
+        for f in range(n_geo):
+            p, bx = coords[f], boxes[f]
+            out["atom"].append(testing.host_nearest(p[sol[:, 0]], p[:n_prot], bx))
+            out["min"].append(testing.host_nearest(p[sol.reshape(-1)], p[:n_prot], bx)
+                              .reshape(-1, 3).min(1))
+            out["com"].append(testing.host_nearest(testing.host_unit_means(p, sc, sw, bx),
+                                                   p[:n_prot], bx))
+        return {k: np.stack(v) for k, v in out.items()}
+
+    jobs = {
+        "sasa": sasa_oracle,
+        "freevolume": lambda: free_oracle(threefry.uniform(0, (n_free, 8192, 3))),
+        "freevolume points": lambda: free_oracle(pts),
+        **{f"sdf {w} {fit}": (lambda w=w, fit=fit: sdf_oracle(w, fit))
+           for w in ("number", "mass") for fit in (False, True)},
+        "polystat": lambda: testing.host_polystat(
+            coords, mem_cols, np.full(mem_cols.shape[0], testing.LIPID_SIZE),
+            np.ones(mem_cols.shape), boxes),
+        "pairdist com": pairdist_oracle,
+        "pairdist min": lambda: [testing.host_residue_min(
+            coords[f], boxes[f], list(np.arange(2 * half).reshape(-1, testing.RESIDUE_SIZE)))
+            for f in range(n_geo)],
+        "select": lambda: [testing.host_nearest(coords[f, w0:], coords[f, :n_prot], boxes[f])
+                           for f in range(n_geo)],
+        "trjorder": trjorder_oracle,
+        "pi Peptide": lambda: [testing.host_self_image(coords[f, :400], np.diag(boxes[f]))
+                               for f in range(N_FRAMES)],
+        "pi Protein": lambda: [testing.host_self_image(coords[f, :n_prot], np.diag(boxes[f]))
+                               for f in range(n_pi)],
+    }
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        fut = {k: pool.submit(timed_job, k, fn) for k, fn in jobs.items()}
+
+        # sasa over a sample of the Protein
+        worst, n_slack, n_max = 0.0, 0, 0
+        for f, (area, count, slack) in enumerate(fut["sasa"].result()):
+            gap = np.abs(sa["area"][f, rows] - area)
+            bound = slack + 2e-6 * area + 1e-6
+            worst = max(worst, float((gap / bound).max()))
+            n_slack += int((slack > 0).sum())
+            n_max = max(n_max, int(count.max()))
+        check(worst <= 1.0, f"sasa: {len(rows)} sampled atoms x {n_geo} frames within float64 "
+              f"but for test points within 2e-5 nm of a sphere ({n_slack} atom-frames with "
+              f"such points; largest gap {worst:.3f} of its bound); the largest relevant "
+              f"count of the sample {n_max} <= max_neighbors {SASA_CAP}")
+        say(f"  sasa: total per frame {sa['total']}")
+
+        for name, got in (("freevolume", fv), ("freevolume points", fvp)):
+            res = fut[name].result()
+            sure = np.asarray([fr.mean() for fr, _ in res])
+            near = np.asarray([nr.mean() for _, nr in res])
+            gap = np.abs(got["fraction"] - sure)
+            check((gap <= near + 1e-6).all(), f"{name}: free fractions of 8192 probes x "
+                  f"{n_free} frames equal float64's but for probes within 2e-5 nm of a sphere "
+                  f"({near.sum() * 8192:.0f}; mean fraction {got['mean_fraction']:.4f})")
+
+        for (w, fit), got in sdfs.items():
+            sure, near_w, near_n = fut[f"sdf {w} {fit}"].result()
+            l1 = float(np.abs(got["counts"].reshape(-1) - sure).sum())
+            check(l1 <= near_w + 1e-5 * sure.sum(),
+                  f"sdf {w} fit={fit}: 40^3 voxel counts equal float64's (from the card's "
+                  f"centre) but for {near_n} offsets within 2e-5 nm of a voxel face (L1 gap "
+                  f"{l1:.3g}, their weight {near_w:.3g}); occupancy {got['occupancy']:.4f}")
+
+        want = fut["polystat"].result()
+        e = max(_rel(ps[k], want[k]) for k in ("ete2", "rg2"))
+        e2 = float(np.abs(ps["bond_corr"] - want["bond_corr"]).max())
+        check(e <= 1e-5 and e2 <= 1e-5 and ps["n_chains"] == mem_cols.shape[0],
+              f"polystat: {ps['n_chains']} chains, ete2 and rg2 within relative 1e-5 of "
+              f"float64 ({e:.2e}), bond correlation within 1e-5 ({e2:.2e})")
+
+        want = fut["pairdist com"].result()
+        sample, dists = want
+        e = float(np.abs(pdc["dist"][:, sample] - dists).max())
+        check(pdc["dist"].shape == (n_geo, res_cols.shape[0], mem_cols.shape[0])
+              and e <= GEO_TOL, f"pairdist com: {pdc['dist'].shape}, {len(sample)} residue "
+              f"rows within {GEO_TOL:g} nm of float64 ({e:.2e})")
+        e = max(float(np.abs(pdm["dist"][f] - m[:half // 10, half // 10:]).max())
+                for f, m in enumerate(fut["pairdist min"].result()))
+        check(e <= GEO_TOL, f"pairdist min: {pdm['dist'].shape} within {GEO_TOL:g} nm of "
+              f"float64 ({e:.2e})")
+
+        near = [np.abs(d - 0.35) < 1e-5 for d in fut["select"].result()]
+        hit = [d < 0.35 for d in fut["select"].result()]
+        blocks = np.arange(nat - w0 - (nat - w0) % 3).reshape(-1, 3)
+        bad = 0
+        for f in range(n_geo):
+            sure = hit[f] & ~near[f]
+            maybe = hit[f] | near[f]
+            lo = np.zeros(nat - w0, bool)
+            hi = np.zeros(nat - w0, bool)
+            lo[blocks] = sure[blocks].any(1)[:, None]
+            hi[blocks] = maybe[blocks].any(1)[:, None]
+            tail = np.arange(blocks.size, nat - w0)     # the lone last OW
+            lo[tail], hi[tail] = sure[tail], maybe[tail]
+            got = sel["masks"][f]
+            bad += int((lo & ~got).sum() + (got & ~hi).sum())
+        check(bad == 0, f"select_dynamic within 0.35 nm whole_res: masks equal float64's but "
+              f"for waters within 1e-5 nm of the cutoff ({int(sum(n.sum() for n in near))}); "
+              f"sizes {sel['sizes']}")
+
+        want = fut["trjorder"].result()
+        for m, got in tro.items():
+            e = float(np.abs(got["dist"] - want[m]).max())
+            check(e <= TRJ_TOL, f"trjorder {m}: {got['dist'].shape} distances within "
+                  f"{TRJ_TOL:g} nm of float64 ({e:.2e}); nshell {got['nshell']}")
+            swaps = 0
+            for f in range(n_geo):
+                differ = got["order"][f] != np.argsort(want[m][f], kind="stable")
+                gap = np.abs(want[m][f][got["order"][f]]
+                             - want[m][f][np.argsort(want[m][f], kind="stable")])
+                swaps += int(differ.sum())
+                check((gap[differ] <= 2 * TRJ_TOL).all(), f"trjorder {m} frame {f}: the order "
+                      f"equals float64's but between molecules within {2 * TRJ_TOL:g} nm")
+            say(f"  trjorder {m}: {swaps} ranks differ from float64's, all within the bound")
+
+        for name, got, n_f, k in (("Peptide", pip, N_FRAMES, 400),
+                                  ("Protein", pir, n_pi, n_prot)):
+            want = np.asarray(fut[f"pi {name}"].result())
+            e = float(np.abs(got["min_image"] - want[:, 0]).max())
+            e2 = float(np.abs(got["max_internal"] - want[:, 1]).max())
+            check(got["min_image"].shape == (n_f,) and e <= 1e-5 + 2e-5 * want.max()
+                  and e2 <= 1e-5 + 2e-5 * want.max(),
+                  f"pi_mindist {name} ({k} atoms, {n_f} frames): min image and max internal "
+                  f"within rtol 2e-5 / atol 1e-5 of float64 ({e:.2e}, {e2:.2e}); min image "
+                  f"{got['min_image'].min():.4f} nm")
+    say(f"  oracles {time.perf_counter() - t_or:.1f} s on 4 threads (each job's own "
+        "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in oracle_secs.items()) + ")")
+
+    # ---- the small analyses, frame by frame ---------------------------------------
+    ca = system.group_indices("CA")
+    worst = {k: 0.0 for k in ("helix", "bundle", "dye", "gangle")}
+    tcols = np.stack(np.split(ca, n_axes))
+    bcols = np.stack(np.split(system.group_indices("PN"), n_axes))
+    d_idx = [0, 4]
+    a_idx = [n_prot // 2, n_prot // 2 + 4]
+    gsites = {"vector": np.stack([ow[:n_whole], ow[:n_whole] + 1], 1),
+              "plane": np.arange(w0, w0 + 3 * n_whole).reshape(-1, 3)}
+    first = {g: testing.host_site_dirs(coords[0], c, boxes[0])[0] for g, c in gsites.items()}
+    g_over, undecided, helix_far = 0.0, 0, 0.0
+    for f in range(N_FRAMES):
+        p, bx = coords[f], boxes[f]
+        h = testing.host_helixorient(p[ca], bx, 2, like=hx["local_axes"][f])
+        undecided += h["undecided"]
+        over = [np.abs(hx["rise_per_residue"][f] - h["rise_per_residue"])
+                / (h["bound_rise"] + 1e-5),
+                np.abs(np.cos(np.radians(hx["twist_per_residue"][f]))
+                       - np.cos(np.radians(h["twist_per_residue"]))) / (h["bound_cos"] + 1e-6),
+                np.abs(hx["axis_vec"][f] - h["axis_vec"]) / (h["bound_axis"] + 1e-5),
+                abs(np.cos(np.radians(hx["tilt"][f])) - np.cos(np.radians(h["tilt"])))
+                / (h["bound_axis"] + 1e-5),
+                abs(hx["rise"][f] - h["rise"]) / (h["bound_rise"].mean() + 1e-5),
+                abs(hx["twist"][f] - h["twist"]) / (h["bound_twist_mean"] + 1e-4),
+                abs(hx["radius"][f] - h["radius"]) / (h["bound_radius_mean"] + 1e-5)]
+        worst["helix"] = max(worst["helix"], *(float(np.max(o)) for o in over))
+        helix_far = max(helix_far, float(np.abs(hx["rise_per_residue"][f]
+                                                - h["rise_per_residue"]).max()))
+        b = testing.host_bundle(p, tcols, mass[tcols] / mass[tcols].sum(1, keepdims=True),
+                                bcols, mass[bcols] / mass[bcols].sum(1, keepdims=True), bx, 2)
+        worst["bundle"] = max(worst["bundle"], *(float(np.abs(bu[k][f] - b[k]).max())
+                                                 for k in ("length", "distance", "zshift",
+                                                           "axes", "center")),
+                              *(float(np.abs(np.cos(np.radians(bu[k][f]))
+                                             - np.cos(np.radians(b[k]))).max())
+                                for k in ("tilt",)),
+                              *(float(np.abs(np.sin(np.radians(bu[k][f]))
+                                             - np.sin(np.radians(b[k]))).max())
+                                for k in ("tiltr", "tiltl")))
+        r, k2 = testing.host_dyecoupl(p, d_idx, a_idx, bx)
+        worst["dye"] = max(worst["dye"], abs(dy["r"][f] - r), abs(dy["kappa2"][f] - k2))
+        for (g1, g2), got in ga.items():
+            dirs, bound = testing.host_site_dirs(p, gsites[g1], bx)
+            ref = dirs[:, 2] if g2 == "z" else (dirs * first[g1]).sum(-1)
+            gap = np.abs(np.cos(np.radians(got["angles"][f])) - ref)
+            g_over = max(g_over, float((gap / (2 * bound + 1e-6)).max()))
+            worst["gangle"] = max(worst["gangle"], float(gap.max()))
+    check(worst["helix"] <= 1.0, f"helixorient over {len(ca)} C-alphas x {N_FRAMES} "
+          f"frames: every window's rise and twist cosine, the means and the axis within "
+          f"float64 plus what the float32 rebuild of the chain moves them by "
+          f"(testing.host_helixorient's bounds; largest {worst['helix']:.3f} of its bound, "
+          f"largest rise gap {helix_far:.2e} nm; {undecided} local axes within 1e-4 of the "
+          "sign rule's edge take the card's sign; random C-alphas, so near-parallel "
+          "bisectors are common)")
+    check(worst["bundle"] <= GEO_TOL, f"bundle of {n_axes} segments: lengths, distances, shifts, "
+          f"axes and the centre within {GEO_TOL:g} nm, the tilts' cosines and sines within "
+          f"{GEO_TOL:g} of float64 ({worst['bundle']:.2e})")
+    check(worst["dye"] <= 1e-5, f"dyecoupl: R and kappa^2 within 1e-5 of float64 "
+          f"({worst['dye']:.2e})")
+    check(g_over <= 1.0, f"gangle vectors and planes of {n_whole} waters against z and t0: "
+          f"cosines within twice the float32 reach of each site's direction (largest gap "
+          f"{worst['gangle']:.2e}, {g_over:.3f} of its bound)")
+
+    # saltbr: the charged units and their distances
+    res_names = testing.named_layout(nat)["resname"][:salt_atoms:testing.RESIDUE_SIZE]
+    charged = np.flatnonzero(np.isin(res_names, ("LYS", "ARG", "ASP", "GLU")))
+    want_labels = [f"{res_names[u]}-{u + 1}" for u in charged]
+    ok = list(sb["labels"]) == want_labels and np.array_equal(
+        sb["charges"], np.where(np.isin(res_names[charged], ("LYS", "ARG")), 1.0, -1.0))
+    e = 0.0
+    iu, ju = sb["pairs"][:, 0], sb["pairs"][:, 1]
+    for f in range(N_FRAMES):
+        c = testing.host_unit_means(coords[f], res_cols[charged], res_w[charged], boxes[f])
+        d = testing._mi(c[iu] - c[ju], boxes[f])
+        e = max(e, float(np.abs(sb["dist"][f] - np.sqrt((d * d).sum(-1))).max()))
+    check(ok and e <= GEO_TOL, f"saltbr over {salt_atoms // 10} residues: the "
+          f"{len(charged)} LYS/ARG/ASP/GLU units with charges +1/-1, {len(iu)} pairs within "
+          f"{GEO_TOL:g} nm of float64 ({e:.2e}; kinds "
+          f"{dict(zip(*np.unique(sb['kinds'], return_counts=True)))})")
+
+    # the cylinder selection
+    lo_hi = [testing.host_in_shape(coords[f, w0:], boxes[f], cyl) for f in range(N_FRAMES)]
+    check(all(lo <= s <= hi for (lo, hi), s in zip(lo_hi, sc["sizes"])),
+          f"select_dynamic cylinder over {N_FRAMES} frames: sizes within the float64 count "
+          f"bounds (sizes {sc['sizes'].min()}-{sc['sizes'].max()})")
+
+    # trjorder output= read back: the solvent permuted into the sorted order
+    q_back = native.xtc_read_frames(out_xtc, native.xtc_scan(out_xtc)[0], nat)[0]
+    sol = np.arange(w0, w0 + 3 * n_whole).reshape(-1, 3)
+    half_q = 0.5 / float(system.get_precision())
+    e = max(float(np.abs(q_back[f][sol.reshape(-1)] - coords[f][sol[trw["order"][f]].reshape(-1)]
+                         ).max()) for f in range(n_geo))
+    check(np.array_equal(trw["order"], tro["atom"]["order"]) and e <= half_q + 4e-6,
+          f"trjorder output=: {n_geo} frames read back, the waters in sorted order within "
+          f"half of 1/precision and two ulps ({e:.2e})")
+    os.unlink(out_xtc)
+
+    # helixorient on an ideal alpha-helix
+    h_ideal, cb = _ideal_helix_call(dev, testing.ideal_backbone(60, *testing.HELIX_PHI_PSI)[1])
+    want = testing.host_helixorient(cb, np.full(3, 20.0), 2)
+    check(abs(h_ideal["rise"][0] - want["rise"]) <= 1e-5
+          and abs(h_ideal["twist"][0] - want["twist"]) <= 1e-3
+          and abs(want["rise"] - 0.15) < 0.01 and abs(want["twist"] - 100.0) < 2.0,
+          f"helixorient of an ideal 60-residue alpha-helix: rise {h_ideal['rise'][0]:.5f} nm, "
+          f"twist {h_ideal['twist'][0]:.3f} deg, radius {h_ideal['radius'][0]:.4f} nm, equal "
+          f"to float64 within 1e-5 nm / 1e-3 deg")
+
+    # ---- resident windows, determinism ---------------------------------------
+    t0 = time.perf_counter()
+    dt = M.TrajectoryAnalysis(system, device=dev).runner(ship="all").load_device(
+        xtc, batch_size=BATCH)
+    for label, again, want in (
+            ("sdf mass fit", M.sdf(system, dt, "OW", "Protein", side=4.0, bins=40, fit=True,
+                                   weights="mass"), sdfs[("mass", True)]),
+            ("pi_mindist Peptide", M.pi_mindist(system, dt, "Peptide"), pip),
+            ("select cylinder", M.select_dynamic(system, dt, "Water", shape=cyl), sc),
+            ("gangle plane t0", M.gangle(system, dt, "WW", g1="plane", g2="t0"),
+             ga[("plane", "t0")])):
+        check(all(np.array_equal(want[k], again[k], equal_nan=True) for k in want
+                  if not isinstance(want[k], (int, float, str))),
+              f"{label} over load_device(ship='all'): the file call's bits")
+    del dt
+    again = M.sdf(system, xtc, "OW", "Protein", side=4.0, bins=40, fit=True, weights="mass",
+                  batch_size=BATCH)
+    check(np.array_equal(again["counts"], sdfs[("mass", True)]["counts"]),
+          "sdf mass fit twice: the same bits")
+    say(f"  windows and repeats: {time.perf_counter() - t0:.1f} s")
+    for path in (gxtc, fxtc, one):
+        os.unlink(path)
+
+    # ---- the triclinic forms, chi on the card, the triclinic dihedral margin --------
+    _geometry_triclinic(torch, dev)
+    _chi_on_card(dev)
+    if tri_site is not None:
+        say(f"  the triclinic dihedral margin (phase 9): worst site frame {tri_site['frame']}, "
+            f"site {tri_site['site']} (atoms {tri_site['atoms']}), error "
+            f"{tri_site['error']:.3e} deg, central bond {tri_site['central_bond']:.4f} nm, "
+            f"bends {tri_site['bends'][0]:.3f} / {tri_site['bends'][1]:.3f} deg, lever arm "
+            f"{tri_site['lever']:.4f} nm, crosses the box: {tri_site['crosses_box']}; one "
+            f"float32 ulp over the lever arm = {tri_site['f32_scale']:.3e} deg")
+    say(f"  phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
+    return counts
+
+
+def _ideal_helix_call(dev, ca):
+    """`helixorient` of C-alphas `ca` [R, 3] written as a one-frame XTC ->
+    (its result, the decoded C-alphas)."""
+    from groan_rs_tpu_torch import convert
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import kernels as K
+
+    n = ca.shape[0]
+    pos = (ca - ca.mean(0) + 10.0).astype(np.float32)
+    path = os.path.join(K.BUILD_DIR, "smoke_helix.xtc")
+    if os.path.exists(path):
+        os.unlink(path)
+    native.xtc_write_frame(path, n, 0, 0.0, np.diag(np.full(3, 20.0, np.float32)).reshape(9),
+                           pos, 100000.0)
+    system = convert.system_from_state({
+        "positions": pos, "box": np.full(3, 20.0, np.float32),
+        "mass": np.ones(n, np.float32), "has_mass": np.ones(n, bool), "precision": 100000,
+        "atomname": np.full(n, "CA"), "resname": np.full(n, "ALA"),
+        "resnum": np.arange(1, n + 1), "groups": {"H": np.arange(n)}}, device=dev)
+    out = M.helixorient(system, path, "H")
+    decoded = native.xtc_read_frames(path, native.xtc_scan(path)[0], n)[0][0]
+    os.unlink(path)
+    return out, decoded
+
+
+def _geometry_triclinic(torch, dev):
+    """`sasa`, `freevolume`, `select_dynamic` and `pi_mindist` on phase 8's
+    rhombic dodecahedron against the triclinic float64 oracles; no kernel
+    launches."""
+    from groan_rs_tpu_torch import testing
+    from groan_rs_tpu_torch import models as M
+    from groan_rs_tpu_torch.io import native
+    from groan_rs_tpu_torch.ops import kernels as K
+    from groan_rs_tpu_torch.utils import threefry
+
+    xtc = triclinic_xtc(BATCH)
+    offs, _, _, nat = native.xtc_scan(xtc)
+    coords, b9s = native.xtc_read_frames(xtc, offs, nat)[:2]
+    boxes = b9s.reshape(-1, 3, 3).astype(np.float64)
+    n_t = min(TRI_FRAMES, BATCH)
+    short = _frame_copy(xtc, offs, n_t, "tri")
+    system = _geometry_system(coords[0], boxes[0].astype(np.float32), dev)
+    n_prot = testing.synthetic_layout(nat)["n_prot"]
+    w0 = testing.synthetic_layout(nat)["w0"]
+    vdw = system.topology.vdw.astype(np.float64)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sa = M.sasa(system, short, "Peptide", max_neighbors=SASA_CAP, batch_size=BATCH)
+    fv = M.freevolume(system, short, "Protein", n_samples=8192, seed=0, batch_size=BATCH)
+    sel = M.select_dynamic(system, short, "Water", within=0.35, of="Peptide", batch_size=BATCH)
+    pi = M.pi_mindist(system, xtc, "Peptide", batch_size=BATCH)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    say(f"  triclinic sasa, freevolume, select ({n_t} frames), pi_mindist ({BATCH} frames): "
+        f"{time.perf_counter() - t0:.2f} s")
+    no_launches(dict(K.launch_counts), "the triclinic geometric analyses")
+    worst = 0.0
+    for f in range(n_t):
+        area, _, slack = testing.host_sasa(coords[f, :400], boxes[f], vdw[:400] + 0.14,
+                                           np.arange(400))
+        worst = max(worst, float((np.abs(sa["area"][f] - area)
+                                  / (slack + 2e-6 * area + 1e-6)).max()))
+    check(worst <= 1.0, f"triclinic sasa of the Peptide within float64 but for test points "
+          f"at a sphere ({worst:.3f} of the bound)")
+    u = threefry.uniform(0, (n_t, 8192, 3))
+    gap = 0.0
+    for f in range(n_t):
+        h = boxes[f].astype(np.float32)
+        xyz = u[f][:, 0:1] * h[0] + u[f][:, 1:2] * h[1] + u[f][:, 2:3] * h[2]
+        free, near = testing.host_free_points(xyz, coords[f, :n_prot], boxes[f], vdw[:n_prot])
+        gap = max(gap, abs(fv["fraction"][f] - free.mean()) - near.mean())
+    check(gap <= 1e-6, f"triclinic freevolume of the Protein: fractions equal float64's but "
+          f"for probes at a sphere ({fv['fraction']})")
+    bad = 0
+    for f in range(n_t):
+        d = testing.host_nearest(coords[f, w0:], coords[f, :400], boxes[f])
+        near = np.abs(d - 0.35) < 1e-5
+        bad += int(((sel["masks"][f] != (d < 0.35)) & ~near).sum())
+    check(bad == 0, f"triclinic select_dynamic within 0.35 nm of the Peptide: masks equal "
+          f"float64's but within 1e-5 nm of the cutoff (sizes {sel['sizes']})")
+    e = 0.0
+    for f in range(BATCH):
+        mn, mx = testing.host_self_image(coords[f, :400], boxes[f])
+        e = max(e, abs(pi["min_image"][f] - mn) / (1e-5 + 2e-5 * mx),
+                abs(pi["max_internal"][f] - mx) / (1e-5 + 2e-5 * mx))
+    check(e <= 1.0, f"triclinic pi_mindist of the Peptide over {BATCH} frames within rtol "
+          f"2e-5 / atol 1e-5 of float64 ({e:.3f} of the bound)")
+    os.unlink(short)
+
+
 def main():
     import torch
 
@@ -3422,7 +4141,7 @@ def main():
     t_phase = phase_seconds(8, t_phase)
 
     # ---- 9. the triclinic observables ------------------------------------
-    tobs_counts, tobs_runner, tobs_dt = triclinic_observables_phase(
+    tobs_counts, tobs_runner, tobs_dt, tri_site = triclinic_observables_phase(
         torch, dev, tpipe)
     t_phase = phase_seconds(9, t_phase)
 
@@ -3450,6 +4169,10 @@ def main():
     # ---- 15. the membrane and interfacial-water analyses ----------------------
     mem_counts = membrane_phase(torch, xtc, offs, nat, c0[0], box, dev)
     t_phase = phase_seconds(15, t_phase)
+
+    # ---- 16. the geometric and surface analyses ----------------------------------
+    geo_counts = geometry_phase(torch, xtc, offs, nat, c0[0], box, dev, tri_site)
+    t_phase = phase_seconds(16, t_phase)
 
     # ---- where the time goes: one profiled pass of each kind -----------
     # the triclinic main path over one batch: phase 9's 12-frame file (the
@@ -3500,7 +4223,7 @@ def main():
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": (counts[k] + file_counts[k] + hb_counts[k] + api_counts[k]
-                      + struct_counts[k] + dyn_counts[k] + mem_counts[k]),
+                      + struct_counts[k] + dyn_counts[k] + mem_counts[k] + geo_counts[k]),
          "max_abs_err": rec[k]["max_abs_err"],
          "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
          "bound_ms": rec[k]["bound"][0], "bound_by": rec[k]["bound"][1],
@@ -3512,7 +4235,7 @@ def main():
          "main_path_launches": counts[k], "files_launches": file_counts[k],
          "hbonds_launches": hb_counts[k], "system_api_launches": api_counts[k],
          "structure_launches": struct_counts[k], "dynamics_launches": dyn_counts[k],
-         "membrane_launches": mem_counts[k]}
+         "membrane_launches": mem_counts[k], "geometry_launches": geo_counts[k]}
         for k in src]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ Optional (a state without them loads with no charges, no bonds, no
 names and every atom in residue 0):
 
 - `charge`     float32 `[N]`;  `has_charge` bool `[N]`
+- `vdw`        float32 `[N]` vdW radii (nm);  `has_vdw` bool `[N]`
 - `bonds`      int `[K, 2]` bonded atom pairs
 - `element`    str `[N]` element symbols ('' = not set)
 - `atomname`   str `[N]` atom names
@@ -46,6 +47,10 @@ def system_from_state(state: dict, device=None) -> System:
         topo.charge = np.asarray(state["charge"], np.float32).reshape(n).copy()
         topo.has_charge = np.asarray(
             state.get("has_charge", ~np.isnan(topo.charge)), bool).reshape(n).copy()
+    if state.get("vdw") is not None:
+        topo.vdw = np.asarray(state["vdw"], np.float32).reshape(n).copy()
+        topo.has_vdw = np.asarray(
+            state.get("has_vdw", ~np.isnan(topo.vdw)), bool).reshape(n).copy()
     for key in ("element", "atomname", "resname", "chain"):
         if state.get(key) is not None:
             setattr(topo, "element_symbol" if key == "element" else key,

@@ -54,6 +54,10 @@ class AtomContainer:
 
     # ------------------------------------------------------------ constructors
     @classmethod
+    def empty(cls) -> "AtomContainer":
+        return cls()
+
+    @classmethod
     def from_indices(cls, indices, n_atoms: int | None = None) -> "AtomContainer":
         """From an arbitrary iterable of indices; deduplicates and sorts.
         Indices outside [0, n_atoms) are dropped (reference behaviour,
@@ -108,6 +112,28 @@ class AtomContainer:
     def __len__(self) -> int:
         return self.get_n_atoms()
 
+    def is_empty(self) -> bool:
+        return self.blocks.shape[0] == 0
+
+    def isin(self, index: int) -> bool:
+        """Binary search over the blocks (reference: container.rs:254)."""
+        pos = int(np.searchsorted(self.blocks[:, 0], index, side="right")) - 1
+        return pos >= 0 and index <= self.blocks[pos, 1]
+
+    def first(self) -> int | None:
+        return int(self.blocks[0, 0]) if self.blocks.shape[0] else None
+
+    def last(self) -> int | None:
+        return int(self.blocks[-1, 1]) if self.blocks.shape[0] else None
+
+    def __iter__(self):
+        for s, e in self.blocks:
+            yield from range(int(s), int(e) + 1)
+
+    def iter(self):
+        """reference: container.rs iter (Python iteration)."""
+        return self.__iter__()
+
     def __eq__(self, other) -> bool:
         return isinstance(other, AtomContainer) and np.array_equal(self.blocks, other.blocks)
 
@@ -124,3 +150,15 @@ class AtomContainer:
         mine = self.indices()
         return AtomContainer(_blocks_from_sorted_unique(
             mine[np.isin(mine, other.indices(), assume_unique=True)]))
+
+    def difference(self, other: "AtomContainer") -> "AtomContainer":
+        """The atoms of this container that `other` does not hold."""
+        if self.is_empty() or other.is_empty():
+            return AtomContainer(self.blocks.copy())
+        mine = self.indices()
+        return AtomContainer(_blocks_from_sorted_unique(
+            mine[~np.isin(mine, other.indices(), assume_unique=True)]))
+
+    def add(self, index: int) -> "AtomContainer":
+        """A new container with `index` inserted."""
+        return self.union(AtomContainer(np.array([[index, index]], np.int64)))

@@ -85,6 +85,11 @@ class SimBox:
 
         return np.array([ang(v2, v3), ang(v1, v3), ang(v1, v2)], dtype=np.float32)
 
+    def to_lengths_angles(self):
+        """(lengths, angles): the inverse of `from_lengths_angles`
+        (reference: simbox.rs to_lengths_angles)."""
+        return self.lengths(), self.angles()
+
     def is_zero(self) -> bool:
         return all(v == 0.0 for v in self)
 
@@ -117,6 +122,11 @@ class SimBox:
     def to_lengths_vec(self) -> np.ndarray:
         """`(3,)` float32 orthogonal box lengths."""
         return np.array([self.v1x, self.v2y, self.v3z], dtype=np.float32)
+
+    def to_gro_line(self) -> list:
+        """The GRO box line's values: 3 for an orthogonal box, else 9."""
+        vals = list(self)
+        return vals[:3] if self.is_orthogonal() else vals
 
 
 def simbox_check(simbox) -> SimBox:

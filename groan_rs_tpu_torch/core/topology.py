@@ -302,6 +302,36 @@ class Topology:
         t._pairs = self._pairs.copy()
         return t
 
+    @classmethod
+    def concat(cls, topos) -> "Topology":
+        """A new topology of `topos` in order: bond pairs offset, atom
+        numbers renumbered 1..N, string columns merged category by
+        category (JAX `core/topology.py:288`; system preparation needs
+        it)."""
+        topos = list(topos)
+        t = cls(sum(x.n_atoms for x in topos))
+        if not topos:
+            return t
+        t.atomnum = np.arange(1, t.n_atoms + 1, dtype=np.int64)
+        t.resnum = np.concatenate([x.resnum for x in topos])
+        for name in ("resname", "atomname", "chain", "element_name",
+                     "element_symbol"):
+            merged = StrColumn()
+            codes = [np.fromiter((merged._code(c) for c in col.categories), np.int32,
+                                 len(col.categories))[col.codes]
+                     if len(col) else np.zeros(0, np.int32)
+                     for col in (getattr(x, name) for x in topos)]
+            merged.codes = np.concatenate(codes)
+            setattr(t, name, merged)
+        for f in ("charge", "mass", "vdw", "expected_min_bonds",
+                  "expected_max_bonds"):
+            setattr(t, f, np.concatenate([getattr(x, f) for x in topos]))
+            setattr(t, "has_" + f, np.concatenate([getattr(x, "has_" + f) for x in topos]))
+        offs = np.cumsum([0] + [x.n_atoms for x in topos[:-1]])
+        t.set_bonds_from_pairs(np.concatenate(
+            [x.bond_pairs() + o for x, o in zip(topos, offs)]))
+        return t
+
     def subset(self, indices) -> "Topology":
         """The topology of the atoms `indices`, the bonds among them
         renumbered (reference analogue: System::group_extract,

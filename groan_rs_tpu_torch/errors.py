@@ -33,8 +33,16 @@ class ParsePqrError(ParseFileError):
     """reference: errors.rs ParsePqrError."""
 
 
+class ParseTprError(ParseFileError):
+    """reference: errors.rs ParseTprError."""
+
+
 class ParseNdxError(ParseFileError):
     """reference: errors.rs ParseNdxError."""
+
+
+class ParseYamlError(ParseFileError):
+    """reference: errors.rs ParseElementError yaml arms."""
 
 
 # ---------------------------------------------------------------- structure writing
@@ -69,6 +77,10 @@ class ReadTrajError(TrajError):
 
 class WriteTrajError(TrajError):
     """reference: errors.rs WriteTrajError."""
+
+
+class TrajCatError(ReadTrajError):
+    """reference: errors.rs arms specific to concatenation."""
 
 
 class GroupError(GroanError):
@@ -128,6 +140,10 @@ class SelectError(GroanError):
 # ---------------------------------------------------------------- elements / guessing
 class ElementError(GroanError):
     """reference: errors.rs ElementError."""
+
+
+class GuessError(GroanError):
+    """reference: errors.rs (element/bond guessing failures)."""
 
 
 class GuessWarning(Warning):

@@ -283,6 +283,12 @@ def format_atom_blob(system, indices, write_velocities: bool) -> bytes:
     return mat.tobytes()
 
 
+def format_atom_lines(system, indices, write_velocities: bool) -> list[str]:
+    """The lines of `format_atom_blob`, one str per atom."""
+    blob = format_atom_blob(system, indices, write_velocities)
+    return blob.decode().split("\n")[:-1]
+
+
 def format_box_line(simbox: SimBox | None) -> str:
     """reference: gro_io/mod.rs write_box."""
     if simbox is None:

@@ -8,7 +8,7 @@ build directory (`groan_rs_tpu_torch/csrc/build/`), atomically (tmp +
 
 Bound here, with the JAX binding's argtypes
 (`groan_rs_tpu/io/native.py:49-140`, `:169-260`, `:434-556`):
-`xtc_scan`, `xtc_read_frames`, `xtc_read_frames_q16`, `xtc_write_frame`,
+`xtc_scan`, `xtc_probe`, `xtc_read_frames`, `xtc_read_frames_q16`, `xtc_write_frame`,
 `trr_scan`, `trr_probe`, `trr_read_frames`, `trr_write_frame` and the
 hydrogen-bond candidate walk `hbond_candidates`.
 """
@@ -103,6 +103,8 @@ def get_lib():
             lib.gx_trr_read.argtypes = [ctypes.c_char_p, P(i64), i64, i32, i32,
                                         P(f32), P(f32), P(f32), P(f32), P(i32),
                                         P(f64), P(f64), P(u8), i32]
+            lib.gx_xtc_probe.restype = i64
+            lib.gx_xtc_probe.argtypes = [ctypes.c_char_p, P(i32), P(i32)]
             lib.gx_trr_probe.restype = i64
             lib.gx_trr_probe.argtypes = [ctypes.c_char_p, P(i32)]
             lib.gx_trr_write_frame.restype = i64
@@ -156,6 +158,15 @@ def xtc_scan(path):
                path)
     return (offsets[:n].copy(), _steps_u32(steps[:n]), times[:n].copy(),
             int(natoms.value))
+
+
+def xtc_probe(path):
+    """(atom count, magic number) of an XTC file's first frame header."""
+    natoms = ctypes.c_int32(0)
+    magic = ctypes.c_int32(0)
+    _check(get_lib().gx_xtc_probe(str(path).encode(), ctypes.byref(natoms),
+                                  ctypes.byref(magic)), path)
+    return int(natoms.value), int(magic.value)
 
 
 def n_default_threads() -> int:

@@ -1,7 +1,8 @@
 """Composed analyses: the per-frame analysis pass, the conformational
 analyses of `structure.py`, the time-correlation and transport analyses
 of `dynamics.py`, the membrane and interfacial-water analyses of
-`membrane.py` and the per-frame converters of `convert.py`."""
+`membrane.py`, the geometric and surface analyses of `geometry.py` and
+the per-frame converters of `convert.py`."""
 
 from .convert import (
     CenterConverter,
@@ -29,6 +30,22 @@ from .dynamics import (
     tcaf,
     vacf,
     vanhove,
+)
+from .geometry import (
+    bundle,
+    dyecoupl,
+    freevolume,
+    gangle,
+    helixorient,
+    pairdist,
+    pi_mindist,
+    polystat,
+    saltbr,
+    sasa,
+    sdf,
+    select_dynamic,
+    trjorder,
+    write_cube,
 )
 from .membrane import (
     densmap,
@@ -73,4 +90,7 @@ __all__ = ["PipelineRunner", "TrajectoryAnalysis", "run_many",
            "hbond_acf", "hbond_lifetime", "msd", "msd_mol", "rotacf", "tcaf",
            "vacf", "vanhove",
            "densmap", "densorder", "h2order", "hydorder", "leaflets",
-           "order_parameters", "potential_profile", "sorient", "spol"]
+           "order_parameters", "potential_profile", "sorient", "spol",
+           "bundle", "dyecoupl", "freevolume", "gangle", "helixorient",
+           "pairdist", "pi_mindist", "polystat", "saltbr", "sasa", "sdf",
+           "select_dynamic", "trjorder", "write_cube"]

@@ -549,34 +549,16 @@ def spol(system, trajectory, ref_group: str, solvent: str, *,
         }
 
 
-def _nearest4(p, pc, r0, bx, triclinic):
+def _nearest4(p, pc, r0, bx):
     """The 4 nearest min-image neighbours of the rows `pc` `[b, C, 3]`
     (rows r0.. of `p` `[b, W, 3]`) -> their displacements `[b, C, 4, 3]`
     and distances `[b, C, 4]`, nearest first, equal distances by the lower
-    column (`jax.lax.top_k`'s order)."""
+    column (`jax.lax.top_k`'s order).  |min image|^2 is
+    `pbc.min_image_norm2_pairs`: axis by axis in place, rounded as
+    `pbc.min_image` rounds it."""
     b, c, wn = pc.shape[0], pc.shape[1], p.shape[1]
     dev = p.device
-    if triclinic:
-        d = (pc[:, :, None, :] - p[:, None, :, :]).reshape(b, c * wn, 3)
-        d2 = pbc.min_image_norm2_frames(d, bx).reshape(b, c, wn)
-        del d
-    else:
-        # |min image|^2 axis by axis, in place: d - L floor(d / L + 1/2) as
-        # `pbc.min_image` rounds it (its half-box sign fix leaves d^2 as it
-        # is), squares summed x, y, z in order
-        d = torch.empty((b, c, wn), dtype=torch.float32, device=dev)
-        q = torch.empty_like(d)
-        d2 = None
-        for a in range(3):
-            box = bx[:, a, None, None]
-            torch.sub(pc[:, :, None, a], p[:, None, :, a], out=d)
-            torch.div(d, box, out=q)
-            d.sub_(q.add_(0.5).floor_().mul_(box))
-            if d2 is None:
-                d2 = d * d
-            else:
-                d2.add_(torch.mul(d, d, out=q))
-        del d, q
+    d2 = pbc.min_image_norm2_pairs(pc, p, bx)
     rows = torch.arange(c, device=dev)
     d2[:, rows, rows + r0] = 1e30                         # no self pair
     key = d2.view(torch.int32).to(torch.int64)
@@ -636,7 +618,7 @@ def hydorder(system, trajectory, oxygen: str = "name OW", *,
         p, bx = pos[f0:f0 + fb], boxes[f0:f0 + fb]
         sg_f, sk_f = [], []
         for r0 in range(0, wn, rows):
-            v, r = _nearest4(p, p[:, r0:r0 + rows], r0, bx, triclinic)
+            v, r = _nearest4(p, p[:, r0:r0 + rows], r0, bx)
             uv = v / r.clamp_min(1e-12)[..., None]
             cs = (uv[:, :, iu] * uv[:, :, ju]).sum(-1)    # [b, C, 6]
             sg_f.append(1.0 - (3.0 / 8.0) * ((cs + 1.0 / 3.0) ** 2).sum(-1))

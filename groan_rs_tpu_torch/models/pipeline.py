@@ -862,6 +862,10 @@ class TrajectoryAnalysis:
         self._vel_specs.append((name, fn))
         return self
 
+    @property
+    def needs_velocities(self) -> bool:
+        return bool(self._vel_specs)
+
     # ------------------------------------------------------------- compile
     def step_fn(self, sel: np.ndarray | None = None):
         """The composed step `(positions [B, K, 3], boxes [B, 3] or
@@ -1254,6 +1258,8 @@ _AXIS = {"x": 0, "y": 1, "z": 2}
 
 _AMU_NM_PS_TO_PAS = 1.66053906660e-6   # amu/(nm ps) -> Pa s
 
+_G1_SITE_WIDTH = {"vector": 2, "plane": 3}   # atoms per gangle site
+
 
 def _unit_tables(system, idx, blocks, loc, *, charges=False):
     """Padded per-unit site tables (JAX `models/pipeline.py:1738-1759`):
@@ -1382,6 +1388,10 @@ _SPLIT_MODULES.update({name: "dynamics" for name in (
 _SPLIT_MODULES.update({name: "membrane" for name in (
     "_water_sites", "densmap", "densorder", "h2order", "hydorder", "leaflets",
     "order_parameters", "potential_profile", "sorient", "spol")})
+_SPLIT_MODULES.update({name: "geometry" for name in (
+    "bundle", "dyecoupl", "freevolume", "gangle", "helixorient", "pairdist",
+    "pi_mindist", "polystat", "saltbr", "sasa", "sdf", "select_dynamic",
+    "trjorder", "write_cube")})
 
 
 def __getattr__(name):

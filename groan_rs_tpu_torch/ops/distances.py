@@ -13,6 +13,7 @@ package's, so both packages take the same branch on the same input.
 `residue_min_matrix` (`:57-101`, the `gmx mdmat` and `gmx clustsize`
 tile) is plain torch, as the JAX function is jnp: the smallest
 minimum-image atom-atom distance between padded residue blocks per frame.
+`self_image_min` (`:254`, `gmx mindist -pi`) is plain torch too.
 
 Triclinic boxes (`[B, 3, 3]` matrices) take a plain-torch pair path in
 every case: `min_distance_triclinic`, `contact_count_triclinic` and
@@ -45,7 +46,7 @@ __all__ = ["center_distance", "pair_distances", "distance_matrix",
            "distance_matrix_masked", "min_distance", "contact_count",
            "min_distance_triclinic", "contact_count_triclinic",
            "pair_distance_histogram", "rdf_normalization",
-           "residue_min_matrix"]
+           "residue_min_matrix", "self_image_min"]
 
 # pairs per chunk of the pair paths that build distances in torch
 _CHUNK_PAIRS = 1 << 24
@@ -291,3 +292,58 @@ def residue_min_matrix(pos, boxes, block_idx, block_mask, *, chunk: int = 16):
                 out[f0:f0 + fb, r0:r0 + chunk, c0:c0 + cols] = torch.sqrt(
                     d2.amin((-2, -1)))
     return out
+
+
+def self_image_min(pos, boxes, *, chunk: int = 128):
+    """Shortest distance between a group and its own periodic images, per
+    frame (the `gmx mindist -pi` reduction; JAX `ops/distances.py:254`).
+
+    For every non-zero image shift S = n @ B (n in {-1, 0, 1}^3, B the box
+    rows; lengths make a diagonal B) and every atom pair (i, j), i == j
+    included (an atom against its own image is |S|), min |x_i - x_j + S|:
+    the 26 shifts as they are, also in a triclinic box, not an exact
+    shortest image.  Beside it the largest internal distance
+    max_ij |x_i - x_j| (no image).
+
+    pos `[F, K, 3]`; boxes `[F, 3]` or `[F, 3, 3]`.  The frames of a call
+    go at once: `[frames, rows, K]` planes of x_i - x_j, at most `chunk`
+    rows and `_TILE_ELEMS` elements a plane (JAX maps over frames and row
+    chunks); each shift's |d + S|^2 is built in place, summed x, y, z,
+    and folded into a running per-frame minimum.
+
+    Returns `(min_image [F], max_internal [F])` float32 tensors in nm."""
+    pos = torch.as_tensor(pos, dtype=torch.float32)
+    dev = pos.device
+    f, k = int(pos.shape[0]), int(pos.shape[1])
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
+    rows_b = (torch.eye(3, dtype=torch.float32, device=dev)[None] * boxes[:, None, :]
+              if boxes.dim() == 2 else boxes)
+    n = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                      for c in (-1, 0, 1) if (a, b, c) != (0, 0, 0)],
+                     dtype=torch.float32, device=dev)                 # [26, 3]
+    shifts = torch.einsum("si,fij->fsj", n, rows_b)                  # [F, 26, 3]
+    rows = max(1, min(int(chunk), k, _TILE_ELEMS // max(1, k)))
+    fb = max(1, _TILE_ELEMS // (rows * k))
+    mn = torch.full((f,), torch.inf, dtype=torch.float32, device=dev)
+    mx = torch.full((f,), -1.0, dtype=torch.float32, device=dev)
+    for f0 in range(0, f, fb):
+        p = pos[f0:f0 + fb]
+        b = p.shape[0]
+        sh = shifts[f0:f0 + b, :, :, None, None]                      # [b, 26, 3, 1, 1]
+        for r0 in range(0, k, rows):
+            pc = p[:, r0:r0 + rows]
+            x, y, z = (pc[:, :, None, a] - p[:, None, :, a] for a in range(3))
+            n2 = x * x
+            n2.add_(y * y).add_(z * z)
+            torch.maximum(mx[f0:f0 + b], n2.amax((1, 2)), out=mx[f0:f0 + b])
+            c = torch.empty_like(x)
+            for s in range(26):
+                t = sh[:, s]
+                torch.add(x, t[:, 0], out=c)
+                torch.mul(c, c, out=n2)
+                torch.add(y, t[:, 1], out=c)
+                n2.add_(c.mul_(c))
+                torch.add(z, t[:, 2], out=c)
+                n2.add_(c.mul_(c))
+                torch.minimum(mn[f0:f0 + b], n2.amin((1, 2)), out=mn[f0:f0 + b])
+    return torch.sqrt(mn), torch.sqrt(mx.clamp_min(0.0))

@@ -35,7 +35,8 @@ __all__ = ["wrap", "min_image", "vector_to", "displacement", "distance",
            "distance_naive", "box_inverse",
            "box_volume", "min_image_triclinic", "distance_triclinic",
            "wrap_triclinic", "min_image_triclinic_frames",
-           "min_image_frames_any", "min_image_norm2_frames", "norm2",
+           "min_image_frames_any", "min_image_norm2_frames",
+           "min_image_norm2_pairs", "norm2",
            "distance_triclinic_frames", "wrap_triclinic_frames"]
 
 
@@ -209,6 +210,37 @@ def min_image_norm2_frames(d, boxes, hinv=None):
         n2.add_(c.mul_(c))
         torch.minimum(best, n2, out=best)
     return best
+
+
+def min_image_norm2_pairs(a, b, boxes, flip: bool = False):
+    """|minimum image of a_i - b_j|^2 `[B, N, M]` for `a` `[B, N, 3]` and
+    `b` `[B, M, 3]` (b_j - a_i with `flip`); boxes `[B, 3]` lengths or
+    `[B, 3, 3]` matrices.  With lengths the displacement is built axis by
+    axis in place, `d - L floor(d / L + 1/2)` as `min_image` rounds it
+    (its half-box sign fix leaves d^2 as it is), squares summed x, y, z:
+    the bits of `norm2(min_image(a_i - b_j))` with one `[B, N, M]` plane
+    per temporary instead of `[B, N, M, 3]`."""
+    bsz, n, m = a.shape[0], a.shape[1], b.shape[1]
+    if flip:
+        a, b = b[:, None, :, :], a[:, :, None, :]
+    else:
+        a, b = a[:, :, None, :], b[:, None, :, :]
+    if boxes.dim() == 3:
+        return min_image_norm2_frames((a - b).reshape(bsz, n * m, 3),
+                                      boxes).reshape(bsz, n, m)
+    d = torch.empty((bsz, n, m), dtype=torch.float32, device=boxes.device)
+    q = torch.empty_like(d)
+    d2 = None
+    for ax in range(3):
+        box = boxes[:, ax, None, None]
+        torch.sub(a[..., ax], b[..., ax], out=d)
+        torch.div(d, box, out=q)
+        d.sub_(q.add_(0.5).floor_().mul_(box))
+        if d2 is None:
+            d2 = d * d
+        else:
+            d2.add_(torch.mul(d, d, out=q))
+    return d2
 
 
 def min_image_frames_any(d, boxes):

@@ -260,6 +260,21 @@ class System(GroupsMixin, AnalysisMixin, TriclinicAnalysisMixin, ModifyingMixin,
         missing, triclinic or invalid box)."""
         return simbox_check(self.simbox).to_lengths_vec()
 
+    def frame_state(self) -> dict:
+        """The current frame as tensors on the System's device: positions
+        `[N, 3]` and the box lengths `(3,)` (zeros without a box) float32,
+        the step int32 and the time float32."""
+        dev = self.device
+        box = (self.simbox.to_lengths_vec() if self.simbox is not None
+               else np.zeros(3, np.float32))
+        return {
+            "positions": torch.as_tensor(np.asarray(self.positions, np.float32),
+                                         device=dev),
+            "box": torch.as_tensor(box, device=dev),
+            "step": torch.tensor(self.step, dtype=torch.int32, device=dev),
+            "time": torch.tensor(self.time, dtype=torch.float32, device=dev),
+        }
+
     def get_step(self) -> int:
         return self.step
 

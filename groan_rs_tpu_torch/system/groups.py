@@ -136,6 +136,39 @@ class GroupsMixin:
         _check_name(name)
         self._add_group(name, Group(AtomContainer.from_ranges(ranges, self.get_n_atoms())))
 
+    # ------------------------------------------------------------- splitting
+    def _split_by(self, name: str, keys: np.ndarray, label: str) -> list:
+        """One group `'<label> <key>'` per distinct key of the group's
+        atoms, in order of first appearance -> the new names."""
+        idx = self.group_indices(name)
+        uniq, first, inv = np.unique(keys[idx], return_index=True,
+                                     return_inverse=True)
+        inv = inv.reshape(-1)
+        order = np.argsort(inv, kind="stable")
+        bounds = np.searchsorted(inv[order], np.arange(uniq.shape[0] + 1))
+        names = []
+        for u in np.argsort(first, kind="stable"):
+            gname = f"{label} {uniq[u]}"
+            names.append(gname)
+            self.group_create_from_indices(gname, idx[order[bounds[u]:bounds[u + 1]]])
+        return names
+
+    def atoms_split_by_resid(self) -> list:
+        """reference: groups.rs:344 — groups named 'resid X'."""
+        return self.group_split_by_resid("all")
+
+    def group_split_by_resid(self, name: str) -> list:
+        """reference: groups.rs:391."""
+        return self._split_by(name, np.asarray(self.topology.resnum), "resid")
+
+    def atoms_split_by_resname(self) -> list:
+        """reference: groups.rs:468 — groups named 'resname X'."""
+        return self.group_split_by_resname("all")
+
+    def group_split_by_resname(self, name: str) -> list:
+        """reference: groups.rs:514."""
+        return self._split_by(name, self.topology.resname.values(), "resname")
+
     # ------------------------------------------------------------- algebra
     def group_union(self, group1: str, group2: str, union: str) -> None:
         """reference: groups.rs:679."""
@@ -148,6 +181,15 @@ class GroupsMixin:
         g1, g2 = self._get_group(group1), self._get_group(group2)
         _check_name(intersection)
         self._add_group(intersection, Group(g1.atoms.intersection(g2.atoms)))
+
+    def group_extend(self, group: str, extend: str) -> None:
+        """reference: groups.rs:716 — add the atoms of `extend` to `group`."""
+        g, e = self._get_group(group), self._get_group(extend)
+        g.atoms = g.atoms.union(e.atoms)
+
+    def groups_member(self, index: int) -> list[str]:
+        """Every group holding the atom (reference: groups.rs:781)."""
+        return [n for n, g in self.groups.items() if g.atoms.isin(index)]
 
     def group_remove(self, name: str) -> None:
         """Remove a group; 'all'/'All' cannot be removed."""
@@ -163,6 +205,14 @@ class GroupsMixin:
         g = self._get_group(old)
         del self.groups[old]
         self._add_group(new, g)
+
+    def group_make_writable(self, name: str) -> None:
+        """Write the group in `write_ndx` (reference: groups.rs:565)."""
+        self._get_group(name).print_ndx = True
+
+    def group_make_nonwritable(self, name: str) -> None:
+        """Leave the group out of `write_ndx` (reference: groups.rs:574)."""
+        self._get_group(name).print_ndx = False
 
     def group_names_writable(self) -> list:
         """Names of ndx-writable groups (reference: groups.rs:743)."""

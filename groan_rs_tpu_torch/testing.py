@@ -82,6 +82,16 @@ periodic `cKDTree` query).  Where a float32 value may land in another bin
 than its float64 value, they return the sure sums and a slack: a result
 is right where |got - sure| <= slack.  `potential_gap_bound` states what
 a charge-density gap moves the field and the potential by.
+
+For the geometric and surface analyses (`models/geometry.py`): neighbour
+queries through a periodic `cKDTree` (a box matrix's 27 images in a plain
+tree; `host_nearest`), `host_sasa` (every neighbour within reach, with
+the slack of test points at a sphere's surface), `host_free_points`,
+`host_self_image`, `host_unit_means` and `mi_f32_image` (the image
+float32 arithmetic picks, for directions), `host_polystat`,
+`host_helixorient`, `host_bundle`, `host_site_dirs`, `host_dyecoupl` and
+`host_sdf` (sure voxel counts and the weight near a face); `chi_state`
+builds ideal residues with full side chains at known chi angles.
 """
 
 from __future__ import annotations
@@ -118,7 +128,12 @@ __all__ = ["host_refined_center", "center_jump_bound", "host_kabsch_rmsd", "host
            "host_molecular_dipoles", "host_leaflets", "host_densmap",
            "host_potential", "host_interfaces", "host_sorient",
            "potential_gap_bound",
-           "host_h2order", "host_spol", "host_hydorder"]
+           "host_h2order", "host_spol", "host_hydorder",
+           "host_nearest", "host_sasa", "host_free_points", "host_self_image",
+           "mi_f32_image",
+           "host_unit_means", "host_polystat", "host_helixorient", "host_bundle",
+           "host_site_dirs", "host_dyecoupl", "host_sdf", "CHI_RESIDUES",
+           "chi_state"]
 
 
 def host_refined_center(p, box, w=None):
@@ -960,7 +975,9 @@ def observable_errors(out, coords, boxes, state, cylinder,
 def dihedral_worst_site(got, coords, boxes) -> dict:
     """Locate the largest dihedral error of an `add_observables` pass:
     `got` [F, K] degrees against `dihedrals_host_f64` on `coords` [F, N, 3]
-    with `boxes` [F, 3].  Besides the frame, site, atoms and error it
+    with `boxes` [F, 3] lengths or [F, 3, 3] matrices (the exact triclinic
+    image; a bond crosses the box when its fractional displacement rounds
+    to a non-zero lattice vector).  Besides the frame, site, atoms and error it
     gives the central bond's length, the two bend angles a-b-c and b-c-d,
     the lever arm (the smaller distance of a or d from the b-c axis),
     whether a bond of the site crosses the box (its minimum image shifts
@@ -998,7 +1015,9 @@ def dihedral_worst_site(got, coords, boxes) -> dict:
     return {"frame": f, "site": k, "atoms": quad[k].tolist(), "error": err,
             "central_bond": float(np.linalg.norm(b2)),
             "bends": (bend(b1, b2), bend(b2, b3)), "lever": lever,
-            "crosses_box": bool(any((np.round(d / box) != 0).any() for d in raw)),
+            "crosses_box": bool(any((np.round(
+                d @ np.linalg.inv(box) if _is_matrix(box) else d / box) != 0).any()
+                for d in raw)),
             "f32_scale": float(np.degrees(ulp / max(lever, 1e-30)))}
 
 
@@ -2162,3 +2181,361 @@ def host_hydorder(p, box, tie_tol: float = 1e-5, workers: int = 1):
     rbar = r.mean(-1)
     sk = 1.0 - ((r - rbar[:, None]) ** 2).sum(-1) / (12.0 * rbar ** 2)
     return sg, sk, dist[:, 5] - dist[:, 4] < tie_tol
+
+
+# ------------------------------------------- geometric and surface analyses
+
+def _image_points(x, box):
+    """Points `x` [N, 3] wrapped into the primary cell and a `cKDTree` that
+    finds their minimum images: the orthorhombic box's periodic tree, or
+    for a box matrix a plain tree of the 27 images of the wrapped points
+    (a query index i maps to atom i % N) -> (tree, wrapped, images,
+    disp(j, q): the displacements of the tree's points j from a query
+    point q in the primary cell)."""
+    from scipy.spatial import cKDTree
+
+    x = np.asarray(x, np.float64)
+    box = np.asarray(box, np.float64)
+    if not _is_matrix(box):
+        w = np.mod(x, box)
+        w[w >= box] = 0.0
+        return cKDTree(w, boxsize=box), w, w, lambda j, q: _mi(w[j] - q, box)
+    s = x @ np.linalg.inv(box)
+    w = (s - np.floor(s)) @ box
+    k = np.arange(27)
+    shifts = (np.stack([k // 9, k // 3 % 3, k % 3], -1) - 1.0) @ box
+    img = (w[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
+    return cKDTree(img), w, img, lambda j, q: img[j] - q
+
+
+def host_nearest(a, b, box, workers: int = 4) -> np.ndarray:
+    """Float64 minimum-image distance from each point of `a` [M, 3] to its
+    nearest point of `b` [K, 3] -> [M] (orthorhombic lengths or a box
+    matrix)."""
+    tree = _image_points(b, box)[0]
+    q = np.asarray(a, np.float64)
+    if _is_matrix(box):
+        s = q @ np.linalg.inv(box)
+        q = (s - np.floor(s)) @ np.asarray(box, np.float64)
+    else:
+        q = np.mod(q, box)
+        q[q >= box] = 0.0
+    return tree.query(q, k=1, workers=workers)[0]
+
+
+def host_sasa(p, box, r_ext, rows, n_points: int = 192, tol: float = 2e-5):
+    """Float64 SASA of the atoms `rows` of one frame (`p` [K, 3], extended
+    radii `r_ext` [K], every neighbour within reach: a tree query of
+    radius r_i + max r) -> (area [R], relevant-neighbour count [R], slack
+    [R]: the area of the test points within `tol` nm of a neighbour's
+    sphere, which float32 may count either way)."""
+    from .ops.sasa import fibonacci_sphere
+
+    p = np.asarray(p, np.float64)
+    r = np.asarray(r_ext, np.float64)
+    box = np.asarray(box, np.float64)
+    pts = fibonacci_sphere(n_points).astype(np.float64)
+    tree, w, _, disp = _image_points(p, box)
+    n = p.shape[0]
+    area, count, slack = (np.zeros(len(rows)) for _ in range(3))
+    for t, i in enumerate(rows):
+        nb = np.asarray(tree.query_ball_point(w[i], r[i] + r.max()), np.int64)
+        j = nb % n
+        d = disp(nb, w[i])
+        dist = np.linalg.norm(d, axis=1)
+        keep = (j != i) & (dist < r[i] + r[j])
+        d, j = d[keep], j[keep]
+        count[t] = keep.sum()
+        gap = np.linalg.norm(r[i] * pts[:, None, :] - d[None], axis=-1) - r[j][None]
+        blocked = (gap < 0).any(1)
+        near = (np.abs(gap) < tol).any(1)
+        unit = 4.0 * np.pi * r[i] ** 2 / n_points
+        area[t] = unit * (~blocked).sum()
+        slack[t] = unit * near.sum()
+    return area, count, slack
+
+
+def host_free_points(xyz, p, box, r_ext, tol: float = 2e-5):
+    """Float64 free-probe test of one frame: probes `xyz` [P, 3] against
+    atoms `p` [K, 3] with extended radii `r_ext` -> (free [P] bool, near
+    [P] bool: a probe within `tol` nm of a sphere's surface)."""
+    r = np.asarray(r_ext, np.float64)
+    tree, w, _, disp = _image_points(p, box)
+    x = np.asarray(xyz, np.float64)
+    free, near = np.ones(len(x), bool), np.zeros(len(x), bool)
+    for t, nb in enumerate(tree.query_ball_point(x, r.max() + tol, workers=4)):
+        if not nb:
+            continue
+        nb = np.asarray(nb, np.int64)
+        gap = np.linalg.norm(disp(nb, x[t]), axis=1) - r[nb % len(w)]
+        free[t] = (gap > 0).all()
+        near[t] = (np.abs(gap) < tol).any()
+    return free, near
+
+
+def host_self_image(p, rows) -> tuple[float, float]:
+    """Float64 `gmx mindist -pi` of one frame: the least |x_i - x_j + S|
+    over the 26 shifts S = n @ rows and all pairs (nearest-neighbour
+    queries of the shifted points), and the largest internal distance
+    (over the convex hull's vertices)."""
+    from scipy.spatial import ConvexHull, cKDTree
+
+    p = np.asarray(p, np.float64)
+    rows = np.asarray(rows, np.float64)
+    tree = cKDTree(p)
+    mn = np.inf
+    for n in np.array([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                       for c in (-1, 0, 1) if (a, b, c) != (0, 0, 0)], np.float64):
+        mn = min(mn, float(tree.query(p + n @ rows, k=1, workers=4)[0].min()))
+    v = p[ConvexHull(p).vertices] if p.shape[0] > 4 else p
+    mx = float(np.sqrt(((v[:, None] - v[None]) ** 2).sum(-1).max()))
+    return mn, mx
+
+
+def mi_f32_image(d, box) -> np.ndarray:
+    """Float64 minimum image of displacements `d` [..., 3] (differences of
+    float32 coordinates) in the orthorhombic `box`, taking the image that
+    the port's float32 `pbc.min_image` picks: k = floor(fl(d / L) + 1/2)
+    in float32, and +L/2 kept at an exact tie.  The float32 and float64
+    images differ where a component lies within float32 rounding of half a
+    box, and on the 0.001 nm grid of an XTC in a 21 nm box such
+    components (10.5 nm apart) turn up every frame; a direction (a bond,
+    a unit's offsets from its first atom) must take the same image.  A box
+    matrix takes the exact float64 image (`_mi`)."""
+    d = np.asarray(d, np.float64)
+    box = np.asarray(box, np.float64)
+    if _is_matrix(box):
+        return _mi(d, box)
+    d32, l32 = d.astype(np.float32), box.astype(np.float32)
+    k = np.floor((d32 / l32).astype(np.float32) + np.float32(0.5))
+    m32 = d32 - l32 * k
+    k = k - ((m32 == -l32 * np.float32(0.5)) & (d32 > -l32 * np.float32(0.5)))
+    return d - box * k
+
+
+def host_unit_means(p, cols, w, box) -> np.ndarray:
+    """Float64 weighted means of units around each unit's first atom (the
+    float32 image, `mi_f32_image`): `cols` [U, P] atom indices (padding
+    weighs 0), `w` [U, P]."""
+    x = np.asarray(p, np.float64)[cols]
+    return x[:, 0] + (np.asarray(w, np.float64)[..., None]
+                      * mi_f32_image(x - x[:, :1], box)).sum(1)
+
+
+def host_polystat(frames, cols, lens, w, boxes) -> dict:
+    """Float64 `polystat` over frames [F, N, 3]: chains `cols` [M, L]
+    (padded), `lens` [M], weights `w` [M, L]."""
+    m, lmax = cols.shape
+    bmask = np.arange(lmax - 1)[None, :] < (lens - 1)[:, None]
+    w = np.asarray(w, np.float64)
+    ete2, rg2, blen, us = [], [], [], []
+    for f in range(frames.shape[0]):
+        g = np.asarray(frames[f], np.float64)[cols]
+        b = _mi(g[:, 1:] - g[:, :-1], np.asarray(boxes[f], np.float64)) * bmask[..., None]
+        rel = np.concatenate([np.zeros((m, 1, 3)), np.cumsum(b, 1)], 1)
+        ete2.append((rel[np.arange(m), lens - 1] ** 2).sum(-1).mean())
+        com = (rel * w[..., None]).sum(1) / w.sum(1)[:, None]
+        rg2.append(((((rel - com[:, None]) ** 2).sum(-1) * w).sum(1) / w.sum(1)).mean())
+        bl = np.linalg.norm(b, axis=-1)
+        blen.append(bl.sum() / bmask.sum())
+        us.append(b / np.where(bl == 0, 1.0, bl)[..., None])
+    u = np.stack(us)
+    lb = lmax - 1
+    corr = np.array([(((u[:, :, :lb - k] * u[:, :, k:]).sum(-1))
+                      * (bmask[:, :lb - k] & bmask[:, k:])).sum()
+                     / (u.shape[0] * max((bmask[:, :lb - k] & bmask[:, k:]).sum(), 1))
+                     for k in range(lb)])
+    return {"ete2": np.asarray(ete2), "rg2": np.asarray(rg2), "bond_corr": corr,
+            "mean_bond_length": float(np.mean(blen))}
+
+
+def _unit64(v):
+    return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
+
+
+def host_helixorient(ca, box, axis: int, like=None, tol: float = 1e-4) -> dict:
+    """Float64 Sugeta-Miyazawa helix geometry of one frame's C-alphas
+    `ca` [R, 3] (residue order; bonds in the float32 image,
+    `mi_f32_image`).  A local axis whose sign rule (along the chord) is
+    within `tol` of undecided takes the sign of `like` [W, 3] (the
+    result under test) where given; 'undecided' counts those windows.
+
+    'bound_*' state how far float32 arithmetic may move each result: the
+    chain is rebuilt whole by a float32 cumulative sum, so every bond
+    carries up to eps = 2 sqrt(3) ulps of the largest whole coordinate;
+    a bisector moves by 2 eps / |u_(i-1) - u_i|, the local axis by the
+    two bisectors' moves over |b_i x b_(i+1)| (a unit vector moves by 2 at
+    most), and rise, the twist's cosine, the radius and the mean axis by
+    what those moves give (x2)."""
+    ca = np.asarray(ca, np.float64)
+    u = mi_f32_image(ca[1:] - ca[:-1], box)
+    whole = ca[0] + np.concatenate([np.zeros((1, 3)), np.cumsum(u, 0)])
+    eps = 2.0 * np.sqrt(3.0) * float(np.spacing(np.float32(np.abs(whole).max())))
+    db = u[:-1] - u[1:]
+    b = _unit64(db)
+    cross = np.cross(b[:-1], b[1:])
+    a = _unit64(cross)
+    chord = u[1:-1]
+    proj = (a * chord).sum(-1)
+    sgn = np.sign(proj)
+    a *= np.where(sgn == 0, 1.0, sgn)[:, None]
+    undecided = np.abs(proj) < tol * np.linalg.norm(chord, axis=-1)
+    if like is not None:
+        flip = undecided & ((a * np.asarray(like, np.float64)).sum(-1) < 0)
+        a[flip] *= -1.0
+    rise = (chord * a).sum(-1)
+    cosw = np.clip((b[:-1] * b[1:]).sum(-1), -1.0, 1.0)
+    twist = np.arccos(cosw)
+    perp = np.linalg.norm(chord - rise[:, None] * a, axis=-1)
+    s2 = np.maximum(2.0 * np.sin(twist / 2.0), 1e-12)
+    radius = perp / s2
+    mean_axis = a.mean(0)
+    # float32 reach
+    e_b = 2.0 * eps / np.maximum(np.linalg.norm(db, axis=-1), 1e-30)
+    e_cos = np.minimum(e_b[:-1] + e_b[1:], 2.0)
+    e_a = np.minimum(2.0 * e_cos / np.maximum(np.linalg.norm(cross, axis=-1), 1e-30), 2.0)
+    u_len = np.linalg.norm(chord, axis=-1)
+    e_rise = 2.0 * (eps + u_len * e_a)
+    e_tw = e_cos / np.maximum(np.sin(twist), 1e-30)
+    e_rad = 2.0 * ((eps + u_len * e_a) / s2 + radius * e_cos / np.maximum(s2 * s2, 1e-30))
+    e_axis = 2.0 * e_a.mean() / max(np.linalg.norm(mean_axis), 1e-30)
+    mean_axis = _unit64(mean_axis)
+    return {"axis_vec": mean_axis, "tilt": np.degrees(np.arccos(np.clip(
+        mean_axis[axis], -1.0, 1.0))), "rise": rise.mean(),
+        "twist": np.degrees(twist.mean()), "radius": radius.mean(),
+        "rise_per_residue": rise, "twist_per_residue": np.degrees(twist),
+        "undecided": int(undecided.sum()), "bound_rise": e_rise, "bound_cos": e_cos,
+        "bound_radius": e_rad, "bound_axis": e_axis,
+        "bound_twist_mean": float(np.degrees(e_tw.mean())),
+        "bound_radius_mean": float(e_rad.mean())}
+
+
+def host_bundle(p, tcols, tw, bcols, bw, box, axis: int) -> dict:
+    """Float64 `bundle` of one frame: part tables `[A, P]` columns and
+    normalised weights of the tops and bottoms (every image the float32
+    one, `mi_f32_image`)."""
+    box = np.asarray(box, np.float64)
+    x = np.asarray(p, np.float64)
+    bcom = host_unit_means(x, bcols, bw, box)
+    tx = x[tcols]
+    b0 = x[bcols[:, 0]]
+    tcom = (b0 + mi_f32_image(tx[:, 0] - b0, box)) + (
+        np.asarray(tw, np.float64)[..., None] * mi_f32_image(tx - tx[:, :1], box)).sum(1)
+    vec = tcom - bcom
+    length = np.linalg.norm(vec, axis=-1)
+    v = vec / length[:, None]
+    mid = bcom + 0.5 * vec
+    centre = mid[0] + mi_f32_image(mid - mid[:1], box).mean(0)
+    off = mi_f32_image(mid - centre, box)
+    e = np.zeros(3)
+    e[axis] = 1.0
+    zshift = off @ e
+    perp = off - zshift[:, None] * e
+    dist = np.linalg.norm(perp, axis=-1)
+    r_hat = perp / np.maximum(dist[:, None], 1e-12)
+    l_hat = np.cross(e, r_hat)
+    deg = np.degrees
+    return {"length": length, "distance": dist, "zshift": zshift,
+            "tilt": deg(np.arccos(np.clip(v @ e, -1, 1))),
+            "tiltr": deg(np.arcsin(np.clip((v * r_hat).sum(-1), -1, 1))),
+            "tiltl": deg(np.arcsin(np.clip((v * l_hat).sum(-1), -1, 1))),
+            "axes": v, "center": centre}
+
+
+def host_site_dirs(p, cols, box):
+    """Float64 unit directions of `gangle` sites: `cols` [S, 2] vectors or
+    [S, 3] plane normals -> (dirs [S, 3], bound [S]: how far float32
+    coordinates may move each direction: two ulps of the largest
+    coordinate per component, over |d1| for a vector and over |d1 x d2| /
+    (|d1| + |d2|) for a plane's normal)."""
+    x = np.asarray(p, np.float64)
+    box = np.asarray(box, np.float64)
+    ulp = 2.0 * np.sqrt(3.0) * float(np.spacing(np.float32(np.abs(x).max())))
+    v = _mi(x[cols[:, 1]] - x[cols[:, 0]], box)
+    n1 = np.linalg.norm(v, axis=-1)
+    if cols.shape[1] == 3:
+        v2 = _mi(x[cols[:, 2]] - x[cols[:, 0]], box)
+        v = np.cross(v, v2)
+        area = np.maximum(np.linalg.norm(v, axis=-1), 1e-30)   # a degenerate plane: no bound
+        return _unit64(v), ulp * (n1 + np.linalg.norm(v2, axis=-1)) / area
+    return _unit64(v), ulp / np.maximum(n1, 1e-30)
+
+
+def host_dyecoupl(p, d_idx, a_idx, box) -> tuple[float, float]:
+    """Float64 (R, kappa^2) of one frame's two dipoles."""
+    x = np.asarray(p, np.float64)
+    dv = mi_f32_image(x[d_idx[1]] - x[d_idx[0]], box)
+    av = mi_f32_image(x[a_idx[1]] - x[a_idx[0]], box)
+    rv = mi_f32_image((x[a_idx[0]] + 0.5 * av) - (x[d_idx[0]] + 0.5 * dv), box)
+    r = float(np.linalg.norm(rv))
+    ud, ua, ur = _unit64(dv), _unit64(av), rv / r
+    kappa = ud @ ua - 3.0 * (ud @ ur) * (ua @ ur)
+    return r, float(kappa * kappa)
+
+
+def host_sdf(off, w, side: float, bins: int, tol: float) -> tuple:
+    """Float64 SDF voxel counts of offsets `off` [K, 3] (from the centre,
+    rotated when fitted) with weights `w` -> (sure counts [bins^3] of the
+    offsets farther than `tol` nm from every voxel face, the total weight
+    of the others, their count)."""
+    vox = side / bins
+    u = (np.asarray(off, np.float64) + side / 2.0) / vox
+    near = (np.abs(u - np.round(u)) * vox < tol).any(1)
+    ijk = np.floor(u).astype(np.int64)
+    inside = ((ijk >= 0) & (ijk < bins)).all(1) & ~near
+    flat = (ijk[inside, 0] * bins + ijk[inside, 1]) * bins + ijk[inside, 2]
+    w = np.broadcast_to(np.asarray(w, np.float64), near.shape)
+    return (np.bincount(flat, w[inside], bins ** 3), float(np.abs(w[near]).sum()),
+            int(near.sum()))
+
+
+CHI_RESIDUES = {
+    # side chain beyond CB, each atom placed at the next chi torsion
+    "LYS": ("CG", "CD", "CE", "NZ"), "ARG": ("CG", "CD", "NE", "CZ"),
+    "SER": ("OG",), "THR": ("OG1",), "CYS": ("SG",), "ILE": ("CG1", "CD1"),
+    "ASP": ("CG", "OD1"), "HIS": ("CG", "ND1"), "MET": ("CG", "SD", "CE"),
+    "GLU": ("CG", "CD", "OE1"), "PHE": ("CG", "CD1")}
+
+
+def chi_state(copies: int, n_frames: int, seed: int = 5, box: float = 6.0) -> dict:
+    """Ideal residues with full side chains, every alternative of the chi
+    site table once per residue kind (`CHI_RESIDUES`), `copies` of each,
+    at seeded chi angles per frame: backbone N CA C, CB, then each side
+    atom at 0.153 nm, 113 degrees and the next chi torsion (NeRF,
+    `place_atom`), each residue rotated at random and placed on a grid in
+    a `box` nm cube -> {"frames" [F, N, 3], "atomname", "resname",
+    "resnum", "box", "chi" {k: [F, residues with chi k]}, "sites" {k:
+    [residues, 4] atom indices}}."""
+    rng = np.random.default_rng(seed)
+    kinds = [k for k in CHI_RESIDUES for _ in range(copies)]
+    names, resn, resi, sites = [], [], [], {k: [] for k in range(1, 5)}
+    chis = rng.uniform(-180.0, 180.0, (n_frames, len(kinds), 4))
+    frames = np.zeros((n_frames, 0, 3))
+    grid = int(np.ceil(len(kinds) ** (1 / 3)))
+    for r, kind in enumerate(kinds):
+        atoms = ("N", "CA", "C", "CB") + CHI_RESIDUES[kind]
+        base = len(names)
+        names += atoms
+        resn += [kind] * len(atoms)
+        resi += [r + 1] * len(atoms)
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        at = (np.array([r % grid, r // grid % grid, r // grid ** 2]) + 0.5) * box / grid
+        per = []
+        for f in range(n_frames):
+            n, ca = np.zeros(3), np.array([0.1458, 0.0, 0.0])
+            c = place_atom(np.array([0.0, 0.1, 0.0]), n, ca, 0.1525, 111.2, -60.0)
+            chain = [n, ca, c, place_atom(c, n, ca, 0.153, 110.5, -122.5)]
+            side = [chain[0], chain[1], chain[3]]
+            for k in range(len(CHI_RESIDUES[kind])):
+                side.append(place_atom(side[-3], side[-2], side[-1], 0.153, 113.0,
+                                       chis[f, r, k]))
+            per.append(np.stack(chain + side[3:]) @ q.T + at)
+        frames = np.concatenate([frames, np.stack(per)], 1)
+        order = ["N", "CA", "CB", *CHI_RESIDUES[kind]]
+        for k in range(1, len(CHI_RESIDUES[kind]) + 1):
+            sites[k].append([base + atoms.index(nm) for nm in order[k - 1:k + 3]])
+    chi = {k: np.stack([chis[:, r, k - 1] for r, kind in enumerate(kinds)
+                        if len(CHI_RESIDUES[kind]) >= k], 1) for k in range(1, 5)}
+    return {"frames": frames, "atomname": np.asarray(names), "resname": np.asarray(resn),
+            "resnum": np.asarray(resi, np.int64), "box": np.full(3, box),
+            "chi": chi, "sites": {k: np.asarray(v) for k, v in sites.items()}}

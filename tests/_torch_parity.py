@@ -15,7 +15,7 @@ def jax_system(state: dict):
     """A `groan_rs_tpu` System built from a port state dict (as
     `bench.py:160-179` builds its System: masses and groups; a `(3, 3)`
     box through `SimBox.from_matrix`), with the
-    optional charges, bonds, element symbols, atom names, residue numbers,
+    optional charges, vdW radii, bonds, element symbols, atom names, residue numbers,
     residue names and chains set through the JAX `Topology`'s own columns
     and setters (no `resnum`: residues of three atoms, numbered from 1)."""
     from groan_rs_tpu.core.simbox import SimBox
@@ -34,6 +34,9 @@ def jax_system(state: dict):
     if state.get("charge") is not None:
         topo.charge = np.asarray(state["charge"], np.float32).copy()
         topo.has_charge = np.asarray(state["has_charge"], bool).copy()
+    if state.get("vdw") is not None:
+        topo.vdw = np.asarray(state["vdw"], np.float32).copy()
+        topo.has_vdw = np.asarray(state["has_vdw"], bool).copy()
     if state.get("element") is not None:
         topo.element_symbol = StrColumn(values=np.asarray(state["element"], str))
     for key in ("atomname", "resname", "chain"):
@@ -63,7 +66,7 @@ def _strs(col):
 
 def state_from_jax_system(system, groups) -> dict:
     """The state dict (`groan_rs_tpu_torch.convert`) of a `groan_rs_tpu`
-    System, carrying the named groups, charges, bonds, element symbols,
+    System, carrying the named groups, charges, vdW radii, bonds, element symbols,
     atom names and the residue columns; a triclinic box as its `(3, 3)`
     matrix."""
     topo = system.topology
@@ -78,6 +81,8 @@ def state_from_jax_system(system, groups) -> dict:
         "has_mass": np.asarray(topo.has_mass, bool),
         "charge": np.asarray(topo.charge, np.float32),
         "has_charge": np.asarray(topo.has_charge, bool),
+        "vdw": np.asarray(topo.vdw, np.float32),
+        "has_vdw": np.asarray(topo.has_vdw, bool),
         "bonds": np.asarray(pairs, np.int64).reshape(-1, 2),
         "element": _strs(topo.element_symbol),
         "atomname": _strs(topo.atomname),
@@ -172,11 +177,33 @@ def frames_pair(path, frames, box, groups, *, boxes=None, precision=100000,
              "groups": {k: np.asarray(v, np.int64) for k, v in groups.items()}}
     for key, val in columns.items():
         state[key] = np.asarray(val)
-    if "charge" in columns:
-        state["has_charge"] = np.ones(n, bool)
+    for key in ("charge", "vdw"):
+        if key in columns:
+            state["has_" + key] = np.ones(n, bool)
     jsys = jax_system(state)
     from groan_rs_tpu_torch import convert
 
     tsys = convert.system_from_state(state_from_jax_system(jsys, groups), device="cpu")
     tsys.topology.atomnum = jsys.topology.atomnum.copy()
     return str(path), jsys, tsys
+
+
+def geometry_pairs(tmp_path_factory, n_frames: int = 6):
+    """{"ortho": ..., "triclinic": ...} of `synthetic_pair(named=True)`
+    triples at 3,000 atoms for the geometric analyses: seeded vdW radii
+    (0.10-0.18 nm) on every atom and the groups CA (the protein's alpha
+    carbons) and WW (the whole three-site waters)."""
+    out = {}
+    radii = np.random.default_rng(3).uniform(0.1, 0.18, 3000).astype(np.float32)
+    for form in ("ortho", "triclinic"):
+        path = tmp_path_factory.mktemp(form) / "geom.xtc"
+        xtc, js, ts = synthetic_pair(path, n_frames=n_frames, named=True,
+                                     triclinic=form == "triclinic")
+        for s in (js, ts):
+            s.topology.vdw = radii.copy()
+            s.topology.has_vdw = np.ones(radii.shape[0], bool)
+            s.group_create("CA", "Protein and name CA")
+            w = s.group_indices("Water")
+            s.group_create_from_indices("WW", w[:3 * (w.shape[0] // 3)])
+        out[form] = (xtc, js, ts)
+    return out
