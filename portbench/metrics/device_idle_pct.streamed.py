@@ -1,0 +1,15 @@
+"""Idle share of the device over the traced passes of a streamed window
+(the window's own passes, `traced_passes` of them): 1 - (union of the
+device's kernel, copy and memset intervals) / (the traced window), from
+the profiler's trace; a trace that lost records is never read."""
+
+NAME, UNIT, BETTER, SOURCE = "device_idle_pct.streamed", "%", "lower", "device_trace"
+LAYER = "device"
+MOVES = "streamed_frames_per_s"
+
+
+def read(ctx):
+    if ctx.traffic["entry"] != "streamed" or not ctx.trace_info:
+        return None
+    info = ctx.trace_info
+    return 100.0 * (1.0 - info["busy_s"] / info["window_s"])
