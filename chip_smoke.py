@@ -382,6 +382,7 @@ kernels' JSON record and the result line `{"ok": true, "device":
 {...}}`.  Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1146,16 +1147,11 @@ def triclinic_phase(torch, dev):
     n_prot, n_mem = testing.synthetic_sizes(N_ATOMS)
 
     K.reset_launch_counts()
-    passes = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        out = runner.run(xtc, batch_size=BATCH)
-        torch.cuda.synchronize()
-        passes.append(time.perf_counter() - t0)
+    out, passes, fetch_s = _streamed_passes(torch, runner, xtc)
     clocks = {k: round(sum(v), 4) for k, v in runner.engine.last_stage_seconds.items()}
     say(f"  streamed passes: {passes[0]:.4f} s (first), {passes[1]:.4f} s "
         f"= {TRI_MAIN_FRAMES / passes[1]:.2f} frames/s; host clocks of the last "
-        f"{clocks}, fetch {runner.engine.last_fetch_seconds:.4f} s")
+        f"{clocks}, fetch {fetch_s:.4f} s")
     for k in ("com", "dist", "rmsd", "mindist", "contacts"):
         v = out[k]
         check(v.shape[0] == TRI_MAIN_FRAMES and bool(np.isfinite(v).all()),
@@ -1381,17 +1377,12 @@ def observables_phase(torch, xtc, offs, nat, frame0, box, main_pipe, dev):
     check(runner.sel is None, "ship='auto' ships all atoms (water is touched)")
 
     K.reset_launch_counts()
-    passes = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        out = runner.run(xtc, batch_size=BATCH)
-        torch.cuda.synchronize()
-        passes.append(time.perf_counter() - t0)
+    out, passes, fetch_s = _streamed_passes(torch, runner, xtc)
     counts = dict(K.launch_counts)
     clocks = {k: round(sum(v), 4) for k, v in runner.engine.last_stage_seconds.items()}
     say(f"  streamed passes: {passes[0]:.4f} s (first), {passes[1]:.4f} s "
         f"= {N_FRAMES / passes[1]:.2f} frames/s; host clocks of the last "
-        f"{clocks}, fetch {runner.engine.last_fetch_seconds:.4f} s; wires "
+        f"{clocks}, fetch {fetch_s:.4f} s; wires "
         f"{runner.engine.last_wires}")
     say(f"  launches during the streamed passes {counts}")
     for k in ("bai_breen_estimate", "bai_breen_refine"):
@@ -5530,6 +5521,23 @@ def tpr_phase(torch, xtc, offs, nat, frame0, box, main_out):
     return counts
 
 
+def _streamed_passes(torch, runner, xtc):
+    """Two streamed passes of `runner` over `xtc` -> (the last one's
+    results, the seconds of each, the seconds of the last one's packed
+    fetch: its `fetch` span, that pass run with the port's tracing on)."""
+    from groan_rs_tpu_torch.utils import profiling
+
+    passes = []
+    for traced in (False, True):
+        with profiling.tracing() if traced else contextlib.nullcontext() as rec:
+            t0 = time.perf_counter()
+            out = runner.run(xtc, batch_size=BATCH)
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+    fetch_s = sum(sp.seconds for sp in rec.take()[0] if sp.name == "fetch")
+    return out, passes, fetch_s
+
+
 def _sync_count(torch, fn):
     """Host synchronisations `fn()` makes on the card, counted by
     `torch.cuda.set_sync_debug_mode("warn")`'s warnings."""
@@ -5992,16 +6000,11 @@ def main():
     runner._reader(xtc, BATCH)
     say(f"  opening the reader (frame-index scan): {time.perf_counter() - t0:.4f} s")
     K.reset_launch_counts()
-    passes = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        out = runner.run(xtc, batch_size=BATCH)
-        torch.cuda.synchronize()
-        passes.append(time.perf_counter() - t0)
+    out, passes, fetch_s = _streamed_passes(torch, runner, xtc)
     clocks = {k: round(sum(v), 4) for k, v in runner.engine.last_stage_seconds.items()}
     say(f"  streamed passes: {passes[0]:.4f} s (first), {passes[1]:.4f} s "
         f"= {N_FRAMES / passes[1]:.2f} frames/s; host clocks of the last "
-        f"{clocks}, fetch {runner.engine.last_fetch_seconds:.4f} s; wires "
+        f"{clocks}, fetch {fetch_s:.4f} s; wires "
         f"{runner.engine.last_wires}")
     for k in ("com", "dist", "rmsd", "mindist"):
         v = out[k]

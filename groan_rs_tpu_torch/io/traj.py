@@ -67,6 +67,7 @@ from __future__ import annotations
 import os
 import re
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -75,6 +76,7 @@ from ..core.simbox import SimBox
 from ..errors import ReadTrajError, WriteTrajError
 from ..files import FileType
 from ..progress import ProgressPrinter, ProgressStatus
+from ..utils import profiling as prof
 from . import native
 
 __all__ = ["TIME_PRECISION", "FrameBatch", "FrameSource", "XtcSource", "TrrSource", "GroSource",
@@ -810,7 +812,9 @@ class _PrefetchLoader:
     chunk i (the native decoder releases the GIL).  One thread: chunks
     decode in order.  `prefetch=False` decodes each chunk on the
     consumer's thread when it is asked for; `deferred=True` starts the
-    next chunk's decode only at `release()`."""
+    next chunk's decode only at `release()`.  With `utils.profiling`'s
+    tracing on, each chunk's decode is a span `decode` under the span open
+    where the loader was made."""
 
     def __init__(self, load, chunks, prefetch: bool = True, deferred: bool = False):
         self._load = load
@@ -819,8 +823,18 @@ class _PrefetchLoader:
         self._pending = None  # (index, thread, result box)
         self._prefetch = prefetch
         self._deferred = deferred
+        self._parent = prof.current() if prof.TRACING else None
         if self._chunks and prefetch:
             self._start(0)
+
+    def _decode(self, chunk) -> FrameBatch:
+        if not prof.TRACING:
+            return self._load(chunk)
+        t0 = time.perf_counter()
+        out = self._load(chunk)
+        prof.add("decode", t0, time.perf_counter(), parent=self._parent, wire=out.wire,
+                 frames=len(out))
+        return out
 
     def release(self) -> None:
         """Start decoding the next chunk (a no-op when it already runs, or
@@ -833,7 +847,7 @@ class _PrefetchLoader:
 
         def work():
             try:
-                box["out"] = self._load(self._chunks[i])
+                box["out"] = self._decode(self._chunks[i])
             except BaseException as e:  # re-raised on the consumer side
                 box["err"] = e
 
@@ -850,7 +864,7 @@ class _PrefetchLoader:
             raise StopIteration
         self._i = i + 1
         if not self._prefetch:
-            return self._load(self._chunks[i])
+            return self._decode(self._chunks[i])
         if self._pending is None:
             self._start(i)
         pi, t, box = self._pending

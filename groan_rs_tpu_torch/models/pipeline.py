@@ -80,6 +80,7 @@ from ..ops import distances as distance_ops
 from ..ops import geometry
 from ..ops import pbc
 from ..ops import rmsd as rmsd_ops
+from ..utils import profiling as prof
 
 __all__ = ["TrajectoryAnalysis", "PipelineRunner", "run_many"]
 
@@ -238,8 +239,8 @@ class TrajectoryAnalysis:
         self._calls = []
         self._specs = []  # (name, fn(positions, boxes) -> tensor)
         self._vel_specs = []  # (name, fn(positions, velocities, boxes, mask))
-        # factory(sel) -> fn(positions, boxes) -> {name: tensor}: several
-        # results of one computation (the dense hbond counter)
+        # (name, factory(sel) -> fn(positions, boxes) -> {name: tensor}):
+        # several results of one computation (the dense hbond counter)
         self._multi_factories = []
         self._hbond_specs = []  # (name, HBondAnalysis): the cell scorer
         self._dense_strict = []  # (name, HBondAnalysis): guarded dense counts
@@ -772,6 +773,8 @@ class TrajectoryAnalysis:
                                    diag[:, 0] + diag[:, 2],
                                    diag[:, 0] + diag[:, 1]], -1)
             inertia = torch.diag_embed(moments) - (s - torch.diag_embed(diag))
+            if prof.TRACING:   # the solver's error check waits for the device
+                prof.count("host_sync", "principal.eigvalsh")
             return torch.linalg.eigvalsh(inertia)
 
         self._declare("principal", name or f"principal_{group}")
@@ -860,7 +863,7 @@ class TrajectoryAnalysis:
                 return out
             return fn
 
-        self._multi_factories.append(factory)
+        self._multi_factories.append((nm, factory))
         if strict:
             self._dense_strict.append((nm, analysis))
         return self
@@ -969,15 +972,32 @@ class TrajectoryAnalysis:
         None = the full system."""
         self._resolve(sel)
         specs = list(self._specs)
-        multi = [factory(sel) for factory in self._multi_factories]
+        multi = [(name, factory(sel)) for name, factory in self._multi_factories]
         vel_specs = list(self._vel_specs)
 
         def step(positions, boxes, frame_mask, velocities=None):
+            if prof.TRACING:
+                return traced(positions, boxes, frame_mask, velocities)
             out = {name: fn(positions, boxes) for name, fn in specs}
-            for fn in multi:
+            for _, fn in multi:
                 out.update(fn(positions, boxes))
             for name, fn in vel_specs:
                 out[name] = fn(positions, velocities, boxes, frame_mask)
+            return out
+
+        def traced(positions, boxes, frame_mask, velocities):
+            """The same step, each observable's call in a span
+            `dispatch/<name>` (`utils/profiling.py`)."""
+            out = {}
+            for name, fn in specs:
+                with prof.span("dispatch/" + name):
+                    out[name] = fn(positions, boxes)
+            for name, fn in multi:
+                with prof.span("dispatch/" + name):
+                    out.update(fn(positions, boxes))
+            for name, fn in vel_specs:
+                with prof.span("dispatch/" + name):
+                    out[name] = fn(positions, velocities, boxes, frame_mask)
             return out
 
         return step
@@ -1131,10 +1151,11 @@ class PipelineRunner:
         from ..io.traj import cat_iter, traj_iter
 
         make = cat_iter if isinstance(filename, (list, tuple)) else traj_iter
-        reader = make(self.system, filename, indices=self.sel,
-                      batch_size=batch_size, start_time=start_time,
-                      end_time=end_time, step=step,
-                      velocities="vel" in self.engine.aux)
+        with prof.span("open"):
+            reader = make(self.system, filename, indices=self.sel,
+                          batch_size=batch_size, start_time=start_time,
+                          end_time=end_time, step=step,
+                          velocities="vel" in self.engine.aux)
         if progress is not None:
             reader.print_progress(progress)
         return reader
@@ -1161,9 +1182,10 @@ class PipelineRunner:
         """Decode and ship a trajectory once into device memory (one file
         or a list of files, with the reader options of `run`); pass the
         returned `DeviceTrajectory` to `run` to re-analyse it."""
-        reader = self._reader(filename, batch_size, start_time, end_time, step,
-                              progress)
-        dt = self._engine_1dev().materialize(reader.batches(wire=self.wire))
+        with prof.span("load_device", batch_size=batch_size):
+            reader = self._reader(filename, batch_size, start_time, end_time, step,
+                                  progress)
+            dt = self._engine_1dev().materialize(reader.batches(wire=self.wire))
         # stamp the shipped-atom layout: a runner compiled for another
         # selection of the same width would read the wrong atoms
         dt.sel = None if self.sel is None else np.asarray(self.sel)
@@ -1188,7 +1210,22 @@ class PipelineRunner:
         A resident window of 4 or more batches runs as fixed-shape slabs
         (`run_resident_fused`), a shorter one batch by batch
         (`run_resident`), as in the JAX runner; GROAN_RESIDENT_FUSED=1 or
-        0 forces either."""
+        0 forces either.
+
+        With `utils.profiling.tracing` on, the call is a span `pass` (its
+        route: "resident_fused", "resident", "oneshot" or "streamed")."""
+        args = (filename, batch_size, start_time, end_time, step, progress, profiler)
+        if not prof.TRACING:
+            return self._run(*args)[0]
+        with prof.span("pass", batch_size=batch_size) as sp:
+            out, route = self._run(*args)
+            if sp is not None:
+                sp.attrs.update(route=route, frames=len(out["times"]))
+        return out
+
+    def _run(self, filename, batch_size, start_time, end_time, step, progress,
+             profiler):
+        """`run` -> (its results, the route that ran them)."""
         from ..parallel.engine import DeviceTrajectory
 
         if isinstance(filename, DeviceTrajectory):
@@ -1199,13 +1236,13 @@ class PipelineRunner:
             eng = self._engine_1dev()
             if fused == "1" or (fused == "auto"
                                 and -(-dt.n_frames // max(1, batch_size)) >= 4):
-                out = eng.run_resident_fused(dt, batch_size=batch_size)
+                route, out = "resident_fused", eng.run_resident_fused(dt, batch_size=batch_size)
             else:
-                out = eng.run_resident(dt, batch_size=batch_size)
+                route, out = "resident", eng.run_resident(dt, batch_size=batch_size)
             self._finish_dense_guards(out, lambda ids: self._window_frames(dt, ids))
             out["times"] = dt.times
             out["steps"] = dt.steps
-            return out
+            return out, route
         reader = self._reader(filename, batch_size, start_time, end_time, step,
                               progress)
         for _, analysis in self.hbond_specs:
@@ -1241,7 +1278,7 @@ class PipelineRunner:
             out, lambda ids: self._file_frames(reader, frames[ids]))
         out["times"] = reader.times
         out["steps"] = reader.steps
-        return out
+        return out, self.last_route
 
     def _oneshot(self, reader, on_batch):
         """The pass as one batch through `FrameEngine.run_oneshot` when it
@@ -1251,15 +1288,16 @@ class PipelineRunner:
         or None to stream.  A delta wire streams.  The pass runs on the
         runner's device: there is no automatic CPU route."""
         eng = self.engine
-        budget = int(os.environ.get("GROAN_ONESHOT_BYTES", 6_000_000))
-        wire = os.environ.get("GROAN_WIRE", "q16" if self.wire == "auto" else self.wire)
-        if eng._spec is not None or eng.n_shards != 1 or wire not in ("q16", "f32"):
-            return None
-        n_f = reader.n_selected()
-        n_ship = len(self.sel) if self.sel is not None else self.system.get_n_atoms()
-        est = n_f * n_ship * 3 * (4 if wire == "f32" else 2)
-        if not 0 < est <= budget:
-            return None
+        with prof.span("open"):
+            budget = int(os.environ.get("GROAN_ONESHOT_BYTES", 6_000_000))
+            wire = os.environ.get("GROAN_WIRE", "q16" if self.wire == "auto" else self.wire)
+            if eng._spec is not None or eng.n_shards != 1 or wire not in ("q16", "f32"):
+                return None
+            n_f = reader.n_selected()
+            n_ship = len(self.sel) if self.sel is not None else self.system.get_n_atoms()
+            est = n_f * n_ship * 3 * (4 if wire == "f32" else 2)
+            if not 0 < est <= budget:
+                return None
         fbs = list(reader.batches(batch_size=n_f, wire=wire, prefetch=False))
         if len(fbs) != 1:
             return None

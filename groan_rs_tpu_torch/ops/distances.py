@@ -37,6 +37,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import profiling as prof
 from . import kernels
 from .center import center
 from .pbc import (_masked_norm, box_inverse, box_volume, distance, min_image,
@@ -253,6 +254,8 @@ def rdf_normalization(box_lengths, n_a: int, n_b: int, r_max: float,
     b = torch.as_tensor(box_lengths, dtype=torch.float32)
     vol = box_volume(b) if b.dim() >= 3 else torch.prod(b, dim=-1)
     n_pairs = n_a * n_b - (n_a if exclude_self else 0)
+    if prof.TRACING:   # a copy from pageable host memory
+        prof.count("host_sync", "rdf_normalization.copy")
     shell_t = torch.as_tensor(shell, dtype=torch.float32, device=b.device)
     return n_pairs * shell_t / vol[..., None]
 

@@ -25,6 +25,7 @@ import torch
 
 from ..core.shapes import AXIS, Cylinder, Rectangular, Sphere
 from ..errors import ShapeError
+from ..utils import profiling as prof
 from .pbc import min_image, min_image_triclinic_frames
 
 __all__ = ["angles", "dihedrals", "inside_shape", "angles_host_f64",
@@ -76,6 +77,8 @@ def inside_shape(shape, pos, boxes):
     boxes = torch.as_tensor(boxes, dtype=torch.float32, device=pos.device)
 
     def f32(x):
+        if prof.TRACING:   # a copy from pageable host memory
+            prof.count("host_sync", "inside_shape.copy")
         return torch.tensor(np.float32(x), device=pos.device)
 
     def axis_dist(ax, anchor):
@@ -84,6 +87,8 @@ def inside_shape(shape, pos, boxes):
         return torch.where(d < 0, d + L, d)
 
     def plane_dist2(center, dims):
+        if prof.TRACING:   # two copies from pageable host memory
+            prof.count("host_sync", "inside_shape.copy", 2)
         d = min_image(pos - torch.as_tensor(center, device=pos.device),
                       boxes[:, None, :])
         keep = torch.tensor([ax in dims for ax in range(3)], device=pos.device)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import backend as _backend  # noqa: F401  (TF32 off before any product)
+from ..utils import profiling
 from .center import center, center_triclinic
 from .pbc import min_image_triclinic, min_image_triclinic_frames, wrap
 
@@ -99,6 +100,8 @@ def kabsch(p, q, w, centroid_p, centroid_q):
         torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], -1),
     ], -2)
 
+    if profiling.TRACING:   # the solver's error check waits for the device
+        profiling.count("host_sync", "rmsd.eigh")
     _, vecs = torch.linalg.eigh(kmat)
     rot_q = _quaternion_to_matrix(vecs[..., :, -1])  # largest eigenvalue
     r = rot_q.transpose(-1, -2)  # reference convention: pc @ r

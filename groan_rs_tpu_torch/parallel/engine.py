@@ -90,6 +90,7 @@ import torch
 
 from ..backend import as_device
 from ..errors import ParallelError
+from ..utils import profiling as prof
 
 __all__ = ["DeviceTrajectory", "FrameEngine", "Mesh", "make_mesh",
            "rebuild_delta", "traj_iter_map_reduce"]
@@ -372,9 +373,9 @@ class FrameEngine:
         self._user_step = step_fn
         # host clocks of the most recent streamed pass, per batch: time
         # blocked on the decoder, staging (pinned fill + copy enqueue) and
-        # step dispatch; plus the final packed fetch
+        # step dispatch (`profiling.tracing` records the same readings as
+        # spans, with the packed fetch's)
         self.last_stage_seconds = {"decode_wait": [], "stage": [], "dispatch": []}
-        self.last_fetch_seconds = 0.0
         self._carry = None  # the delta wires' last rebuilt frame, int32 [K, 3]
         self.h2d_bytes = 0  # wire bytes shipped (positions and delta sidecars)
         self.frames_shipped = 0
@@ -479,8 +480,11 @@ class FrameEngine:
         s = slots[i % 2]
         if s is None or s.spec != spec:
             s = slots[i % 2] = _Slot(spec, self.device, compute)
-        elif s.copied is not None:
-            s.copied.synchronize()  # its last H2D copy has left the pinned buffer
+        else:
+            if prof.TRACING:
+                prof.count("host_sync", "engine.slot_reuse")
+            if s.copied is not None:
+                s.copied.synchronize()  # its last H2D copy has left the pinned buffer
         return s
 
     def run(self, batches, on_batch=None, fold=None, init=None, collect=True,
@@ -501,13 +505,13 @@ class FrameEngine:
         `profiler` (a `utils.profiling.PipelineProfiler`) records each
         batch's decode_wait, stage and dispatch; a profiled pass waits for
         each batch's copy and for its compute before it stops their
-        clocks (JAX `engine.py:467-531`)."""
+        clocks (JAX `engine.py:467-531`).  With `utils.profiling.tracing`
+        on, the same clock readings are spans too (`decode_wait`, `stage`,
+        `dispatch`), and the packed fetch is a `fetch` span."""
         cuda = self.device.type == "cuda"
         compute = torch.cuda.current_stream(self.device) if cuda else None
         copy = torch.cuda.Stream(self.device) if cuda else None
         clocks = {"decode_wait": [], "stage": [], "dispatch": []}
-        if on_batch is not None:
-            clocks["on_batch"] = []
         self.last_stage_seconds = clocks
         slots = [None, None]
         outs, trims = [], []
@@ -522,7 +526,10 @@ class FrameEngine:
         while True:
             t0 = _pc()
             fb = next(it, None)
-            clocks["decode_wait"].append(_pc() - t0)
+            t1 = _pc()
+            clocks["decode_wait"].append(t1 - t0)
+            if prof.TRACING:
+                prof.add("decode_wait", t0, t1, batch=i)
             if fb is None:
                 break
             t0 = _pc()
@@ -546,10 +553,17 @@ class FrameEngine:
                         slot.dev[name].copy_(slot.host[name], non_blocking=True)
                     slot.copied.record(copy)
                 compute.wait_event(slot.copied)
-                if profiler is not None:
+            if profiler is not None:
+                if prof.TRACING:
+                    prof.count("host_sync", "engine.profiler_copy")
+                if cuda:
                     slot.copied.synchronize()
-            clocks["stage"].append(_pc() - t0)
+            t1 = _pc()
+            clocks["stage"].append(t1 - t0)
+            if prof.TRACING:
+                prof.add("stage", t0, t1, batch=i, wire=fb.wire)
             t0 = _pc()
+            sp = prof.begin("dispatch", t0, batch=i, frames=b) if prof.TRACING else None
             try:
                 mask = self._mask(b_pad, b)
                 pos = slot.dev["pos"]
@@ -562,8 +576,11 @@ class FrameEngine:
                                        [slot.dev[a] for a in self.aux], b)
                 if fold is not None:
                     carry = fold(carry, self._whole(parts), mask)
-                if profiler is not None and cuda:
-                    compute.synchronize()
+                if profiler is not None:
+                    if prof.TRACING:
+                        prof.count("host_sync", "engine.profiler_compute")
+                    if cuda:
+                        compute.synchronize()
             except Exception as e:
                 raise ParallelError(
                     f"analysis step failed on frames {int(fb.frame_numbers[0])}"
@@ -571,25 +588,21 @@ class FrameEngine:
             parts = [(_own(r, slot.dev.values()), n) for r, n in parts]
             if cuda:
                 slot.consumed.record(compute)
-            clocks["dispatch"].append(_pc() - t0)
+            t1 = _pc()
+            clocks["dispatch"].append(t1 - t0)
+            if sp is not None:
+                prof.end(sp, t1)
             if profiler is not None:
-                profiler.record_batch(len(fb), {k: v[-1] for k, v in clocks.items()
-                                                if k in profiler.STAGES})
+                profiler.record_batch(len(fb), {k: v[-1] for k, v in clocks.items()})
             if on_batch is not None:
-                t0 = _pc()
                 on_batch(fb)
-                clocks["on_batch"].append(_pc() - t0)
             if on_carry is not None:
                 on_carry(fb, carry)
             if collect:
                 outs.extend(r for r, _ in parts)
                 trims.extend(n for _, n in parts)
             i += 1
-        out = {}
-        if outs:
-            t0 = _pc()
-            out = self._fetch_packed(outs, trims)
-            self.last_fetch_seconds = _pc() - t0
+        out = self._fetch_packed(outs, trims) if outs else {}
         if fold is None:
             return out if collect else None
         return (out if collect else None), carry
@@ -625,18 +638,23 @@ class FrameEngine:
         self.last_wires = []
         self._count(fb)
         t0 = time.perf_counter()
+        if prof.TRACING:
+            prof.count("host_sync", "oneshot.copy")
         buf = torch.from_numpy(host).to(dev)
         t1 = time.perf_counter()
+        if prof.TRACING:
+            prof.add("stage", t0, t1, batch=0, wire=kind)
+        sp = prof.begin("dispatch", t1, batch=0, frames=b) if prof.TRACING else None
         x = {name: buf[o:o + nb].view(dt).reshape(shape)
              for name, dt, shape, o, nb in metas}
         res = self._step(kind, x["pos"], x["boxes"], x["mask"], x.get("inv"),
                          *(x[a] for a in self.aux))
         t2 = time.perf_counter()
-        out = self._fetch_packed([res], [b])
+        if sp is not None:
+            prof.end(sp, t2)
         self.last_stage_seconds = {"decode_wait": [], "stage": [t1 - t0],
                                    "dispatch": [t2 - t1]}
-        self.last_fetch_seconds = time.perf_counter() - t2
-        return out
+        return self._fetch_packed([res], [b])
 
     # ------------------------------------------------------------ resident
     def materialize(self, batches) -> DeviceTrajectory:
@@ -655,44 +673,56 @@ class FrameEngine:
         maxs = []  # device scalars: |q| of each rebuilt part
         self._carry = None
         self.last_wires = []
+        if prof.TRACING:
+            batches = prof.waits(batches)
         for fb in batches:
-            kind, arrs = _host_arrays(fb, self.box_form, self.aux)
-            self._count(fb)
-            if kind in DELTA_WIRES:
-                self._seed_carry(fb)
-                d = {n: torch.from_numpy(arrs[n]).to(self.device)
-                     for n in ("pos", "shifts", "eidx", "evals")}
-                q = self._rebuild(kind, d["pos"], d["shifts"], d["eidx"], d["evals"],
-                                  fb.wire_natoms)
-                maxs.append(q.abs().amax())
-                pos.append(q)
-                kind = "q16"
-            else:
-                pos.append(torch.from_numpy(arrs["pos"]).to(self.device))
-            kinds.add(kind)
-            boxes.append(torch.from_numpy(arrs["boxes"]).to(self.device))
-            for parts, ch in zip(aux, self.aux):
-                parts.append(torch.from_numpy(arrs[ch]).to(self.device))
-            iv = arrs.get("inv", np.ones(arrs["pos"].shape[0], np.float32))
-            inv.append(torch.from_numpy(iv).to(self.device))
-            times.append(np.asarray(fb.times))
-            steps.append(np.asarray(fb.steps))
+            with prof.span("ship", frames=len(fb), wire=fb.wire):
+                kind, arrs = _host_arrays(fb, self.box_form, self.aux)
+                self._count(fb)
+                if kind in DELTA_WIRES:
+                    self._seed_carry(fb)
+                    d = {n: self._ship(arrs[n]) for n in ("pos", "shifts", "eidx", "evals")}
+                    q = self._rebuild(kind, d["pos"], d["shifts"], d["eidx"], d["evals"],
+                                      fb.wire_natoms)
+                    maxs.append(q.abs().amax())
+                    pos.append(q)
+                    kind = "q16"
+                else:
+                    pos.append(self._ship(arrs["pos"]))
+                kinds.add(kind)
+                boxes.append(self._ship(arrs["boxes"]))
+                for parts, ch in zip(aux, self.aux):
+                    parts.append(self._ship(arrs[ch]))
+                inv.append(self._ship(arrs.get("inv", np.ones(arrs["pos"].shape[0],
+                                                              np.float32))))
+                times.append(np.asarray(fb.times))
+                steps.append(np.asarray(fb.steps))
         if not pos:
             raise ParallelError("empty trajectory")
-        if kinds == {"q16"}:
-            wide = bool(maxs) and int(torch.stack(maxs).max()) > 32767
-            dt = torch.int32 if wide else torch.int16
-            out_kind, p, iv = "q16", torch.cat([q.to(dt) for q in pos]), torch.cat(inv)
-        else:  # mixed wires: dequantize the quantized parts once
-            out_kind = "f32"
-            p = torch.cat([q.to(torch.float32) * v[:, None, None]
-                           if q.dtype != torch.float32 else q
-                           for q, v in zip(pos, inv)])
-            iv = torch.ones(p.shape[0], dtype=torch.float32, device=self.device)
+        with prof.span("narrow"):
+            if kinds == {"q16"}:
+                if maxs and prof.TRACING:
+                    prof.count("host_sync", "materialize.range")
+                wide = bool(maxs) and int(torch.stack(maxs).max()) > 32767
+                dt = torch.int32 if wide else torch.int16
+                out_kind, p, iv = "q16", torch.cat([q.to(dt) for q in pos]), torch.cat(inv)
+            else:  # mixed wires: dequantize the quantized parts once
+                out_kind = "f32"
+                p = torch.cat([q.to(torch.float32) * v[:, None, None]
+                               if q.dtype != torch.float32 else q
+                               for q, v in zip(pos, inv)])
+                iv = torch.ones(p.shape[0], dtype=torch.float32, device=self.device)
         return DeviceTrajectory(p, torch.cat(boxes), iv, np.concatenate(times),
                                 np.concatenate(steps), out_kind, self.box_form,
                                 aux=[torch.cat(parts) for parts in aux],
                                 aux_names=self.aux)
+
+    def _ship(self, a: np.ndarray) -> torch.Tensor:
+        """One host array of a load on the device: a copy from pageable
+        memory, which the host waits for."""
+        if prof.TRACING:
+            prof.count("host_sync", "materialize.copy")
+        return torch.from_numpy(a).to(self.device)
 
     def check_box_form(self, dt: DeviceTrajectory) -> None:
         """Refuse a window shipped with the other box form: the step would
@@ -771,9 +801,13 @@ class FrameEngine:
         carry = init
         for f0 in range(0, dt.n_frames, batch_size):
             f1 = min(f0 + batch_size, dt.n_frames)
+            sp = (prof.begin("dispatch", batch=f0 // batch_size, frames=f1 - f0)
+                  if prof.TRACING else None)
             res, mask = self._resident_step(dt, aux, f0, f1, f1 - f0)
             if fold is not None:
                 carry = fold(carry, res, mask)
+            if sp is not None:
+                prof.end(sp)
             if collect:
                 outs.append(res)
                 trims.append(f1 - f0)
@@ -799,7 +833,10 @@ class FrameEngine:
         outs, trims = [], []
         for f0 in range(0, n, b):
             f1 = min(f0 + b, n)
+            sp = prof.begin("dispatch", batch=f0 // b, frames=f1 - f0) if prof.TRACING else None
             outs.append(self._resident_step(dt, aux, f0, f1, b)[0])
+            if sp is not None:
+                prof.end(sp)
             trims.append(f1 - f0)
         return self._fetch_packed(outs, trims)
 
@@ -839,21 +876,24 @@ class FrameEngine:
     def fetch_packed_many(result_sets):
         """`_fetch_packed` over several passes' `(outs, trims)` at once:
         one transfer per dtype for all of them -> one dict per set."""
-        cats = [FrameEngine.cat_batches(outs, trims) if outs else {}
-                for outs, trims in result_sets]
-        by_dtype: dict = {}
-        for i, cat in enumerate(cats):
-            for k, v in cat.items():
-                by_dtype.setdefault(v.dtype, []).append((i, k))
-        results = [{} for _ in cats]
-        for dt, keys in by_dtype.items():
-            host = torch.cat([cats[i][k].reshape(-1)
-                              for i, k in keys]).cpu().numpy()
-            off = 0
-            for i, k in keys:
-                v = cats[i][k]
-                results[i][k] = host[off:off + v.numel()].reshape(tuple(v.shape))
-                off += v.numel()
+        with prof.span("fetch", sets=len(result_sets)):
+            cats = [FrameEngine.cat_batches(outs, trims) if outs else {}
+                    for outs, trims in result_sets]
+            by_dtype: dict = {}
+            for i, cat in enumerate(cats):
+                for k, v in cat.items():
+                    by_dtype.setdefault(v.dtype, []).append((i, k))
+            results = [{} for _ in cats]
+            for dt, keys in by_dtype.items():
+                if prof.TRACING:
+                    prof.count("host_sync", "fetch.copy")
+                host = torch.cat([cats[i][k].reshape(-1)
+                                  for i, k in keys]).cpu().numpy()
+                off = 0
+                for i, k in keys:
+                    v = cats[i][k]
+                    results[i][k] = host[off:off + v.numel()].reshape(tuple(v.shape))
+                    off += v.numel()
         return [{k: r[k] for k in cat} for r, cat in zip(results, cats)]
 
 

@@ -1,4 +1,4 @@
-"""Pipeline profiling.
+"""Pipeline profiling and the port's in-memory tracing.
 
 Port of `groan_rs_tpu/utils/profiling.py`:
 
@@ -18,16 +18,58 @@ Port of `groan_rs_tpu/utils/profiling.py`:
 - `trace(log_dir)`: a context manager around `torch.profiler` (CPU, and
   CUDA when a card is present) that writes a Chrome trace of the wrapped
   region into `log_dir` (TensorBoard or Perfetto read it).
+
+Tracing (the port's own spans and counters, no JAX counterpart):
+
+    from groan_rs_tpu_torch.utils import profiling
+
+    with profiling.tracing() as rec:
+        runner.run(xtc)
+    spans, counters = rec.take()
+
+- It is off unless a `tracing()` block is open; no environment variable
+  switches it.  Off, each site in the port costs one check of the
+  module-level flag `TRACING` and records nothing.  On, a span is a
+  `Span` (name, start, end, thread, parent span id, pass id, attributes)
+  and a counter one `(name, site) -> count` entry of `rec.counters`;
+  both stay in memory until `rec.take()` hands them over.  Recording makes
+  no host synchronisation: a span is the host's time around a call, and
+  a span that launches device work ends when the launch returns.
+- Times are `time.perf_counter()` seconds, the clock of the readings
+  `FrameEngine.last_stage_seconds` keeps (a span and that clock share
+  their two readings).  To line the spans up with a `torch.profiler`
+  trace, launch a marker kernel on an idle device right after a
+  `perf_counter()` reading (`torch.cuda.synchronize()`, read the clock,
+  `torch.cuda._sleep(n)`, synchronise): the marker's start in the trace
+  minus that reading is the offset from host time to trace time.
+- A span's parent is the span open on its thread when it opened; the
+  reader's prefetch thread takes the span open where its loader was made.
+  Its pass id is the id of the outermost span above it (`pass`, or
+  `load_device`).
+- Spans: `pass` (`PipelineRunner.run`; route, frames, batch size), `open`
+  (the reader's construction; the one-shot size check), `decode` (one
+  batch's decode, on the prefetch thread), `decode_wait`, `stage`,
+  `dispatch` (with a child `dispatch/<observable>` per observable of the
+  step), `fetch` (the packed fetch), `load_device` with `decode_wait`,
+  `ship` and `narrow` under it.  Counter: `host_sync`, per site, each time
+  a call that makes the host wait for the device is passed, on any
+  device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import statistics
+import threading
 import time
 
-__all__ = ["PipelineProfiler", "trace"]
+__all__ = ["PipelineProfiler", "Recorder", "Span", "trace", "tracing"]
+
+# True only inside a `tracing()` block: the one check each site makes
+TRACING = False
+_rec = None  # the open block's Recorder
 
 
 class PipelineProfiler:
@@ -118,3 +160,172 @@ def trace(log_dir):
             activities=acts,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir))) as prof:
         yield prof
+
+
+# ------------------------------------------------------------------ tracing
+class Span:
+    """One host-clock interval of the port (perf_counter seconds); `t1`
+    is None while it is open."""
+
+    __slots__ = ("id", "name", "t0", "t1", "thread", "parent", "pass_id", "attrs")
+
+    def __init__(self, sid, name, t0, t1, parent, attrs):
+        self.id = sid
+        self.name = name
+        self.t0 = t0
+        self.t1 = t1
+        self.thread = threading.get_ident()
+        self.parent = None if parent is None else parent.id
+        self.pass_id = sid if parent is None else parent.pass_id
+        self.attrs = attrs
+
+    @property
+    def seconds(self) -> float:
+        return self.t1 - self.t0
+
+    def __repr__(self) -> str:
+        return (f"Span({self.id} {self.name!r} {self.t0:.6f}-{self.t1} parent "
+                f"{self.parent} pass {self.pass_id} {self.attrs})")
+
+
+class Recorder:
+    """The spans (in the order they opened) and counters of one
+    `tracing()` block."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: dict = {}   # (name, site) -> count
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._local = threading.local()  # each thread's stack of open spans
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def take(self):
+        """-> (spans, counters) recorded so far; the recorder starts empty."""
+        with self._lock:
+            out = self.spans, self.counters
+            self.spans, self.counters = [], {}
+        return out
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the port's spans and counters inside the block; yields the
+    `Recorder`.  Blocks nest: an inner block records alone, and the outer
+    one records again after it."""
+    global TRACING, _rec
+    prev = TRACING, _rec
+    rec = Recorder()
+    _rec, TRACING = rec, True
+    try:
+        yield rec
+    finally:
+        TRACING, _rec = prev
+
+
+def current():
+    """The innermost span open on this thread (None without one)."""
+    rec = _rec
+    if rec is None:
+        return None
+    st = rec._stack()
+    return st[-1] if st else None
+
+
+def begin(name: str, t0: float | None = None, **attrs):
+    """Open span `name` on this thread, under the span open there; -> the
+    Span, or None when tracing is off."""
+    rec = _rec
+    if rec is None:
+        return None
+    st = rec._stack()
+    s = Span(next(rec._ids), name, time.perf_counter() if t0 is None else t0, None,
+             st[-1] if st else None, attrs)
+    st.append(s)
+    with rec._lock:
+        rec.spans.append(s)
+    return s
+
+
+def end(span, t1: float | None = None) -> None:
+    """Close `span` (a Span from `begin`, or None); a child that an
+    exception left open closes with it."""
+    if span is None:
+        return
+    span.t1 = time.perf_counter() if t1 is None else t1
+    rec = _rec
+    st = rec._stack() if rec is not None else []
+    while span in st:
+        top = st.pop()
+        if top.t1 is None:
+            top.t1 = span.t1
+
+
+def add(name: str, t0: float, t1: float, parent=None, **attrs):
+    """A closed span from two readings already taken, under `parent` (by
+    default the span open on this thread) -> the Span, or None when
+    tracing is off."""
+    rec = _rec
+    if rec is None:
+        return None
+    if parent is None:
+        parent = current()
+    s = Span(next(rec._ids), name, t0, t1, parent, attrs)
+    with rec._lock:
+        rec.spans.append(s)
+    return s
+
+
+class _Open:
+    """`with span(...)`: begin on entry, end on exit."""
+
+    __slots__ = ("name", "attrs", "span")
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        self.span = begin(self.name, **self.attrs)
+        return self.span
+
+    def __exit__(self, *exc):
+        end(self.span)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **attrs):
+    """`with span(name, **attrs) as s:` records the block as a span (`s`
+    the Span, None when tracing is off)."""
+    return _OFF if not TRACING else _Open(name, attrs)
+
+
+def count(name: str, site: str, n: int = 1) -> None:
+    """Add `n` to counter `name` at `site` (nothing when tracing is off)."""
+    rec = _rec
+    if rec is None:
+        return
+    with rec._lock:
+        rec.counters[(name, site)] = rec.counters.get((name, site), 0) + n
+
+
+def waits(iterable, name: str = "decode_wait"):
+    """`iterable`'s items, each `next()` recorded as span `name` (the
+    closing one that finds it exhausted too)."""
+    it = iter(iterable)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            add(name, t0, time.perf_counter())
+            return
+        add(name, t0, time.perf_counter())
+        yield item
