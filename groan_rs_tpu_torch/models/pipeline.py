@@ -66,6 +66,7 @@ the atoms-sharded runner streams only.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import time
 
@@ -1249,8 +1250,11 @@ class PipelineRunner:
         for _, analysis in self.hbond_specs:
             analysis.batch_stats = []
         hb_counts = {nm: [] for nm, _ in self.hbond_specs}
+        hb_batch = itertools.count()  # the `hbond` span's batch number
 
         def on_batch(fb):
+            sp = (prof.begin("hbond", batch=next(hb_batch), frames=len(fb))
+                  if prof.TRACING else None)
             pos, boxes = fb.positions, fb.box_lengths()
             q_pos = inv = None
             if fb.wire == "q16":
@@ -1262,6 +1266,7 @@ class PipelineRunner:
             for nm, analysis in self.hbond_specs:
                 hb_counts[nm].append(analysis.analyze_batch(
                     pos, boxes, counts_only=True, q_positions=q_pos, inv_prec=inv))
+            prof.end(sp)
 
         out = self._oneshot(reader, on_batch) if profiler is None else None
         self.last_route = "streamed" if out is None else "oneshot"

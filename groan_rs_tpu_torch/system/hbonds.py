@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..errors import HBondError, SelectError
+from ..utils import profiling as prof
 
 __all__ = ["HBondChain", "HBond", "HBondAnalysis", "make_dense_counter",
            "remap_analysis", "HBondsMixin"]
@@ -457,6 +458,8 @@ def _score_device(pos, boxes, d_rank, a_rank, seg, valid, t, max_distance: float
     counts = torch.stack([(keep & (seg == p)[..., None]).sum((1, 2))
                           for p in range(n_pairs)], -1)
     guard_cnt = guard.sum((1, 2))
+    if prof.TRACING:
+        prof.count("host_sync", "hbond.nonzero")
     g_frame, g_slot = torch.nonzero(guard.reshape(b, -1), as_tuple=True)
     keep_at = keep.reshape(b, -1)[g_frame, g_slot]
     out = {"counts": counts, "guard_cnt": guard_cnt, "g_frame": g_frame,
@@ -650,8 +653,9 @@ class HBondAnalysis:
         n_pairs = len(self.pairs)
         tables = self._tables()
         t0 = time.perf_counter()
-        d_r, a_r, seg, valid, seg_list = tables.pack_frames(positions, boxes,
-                                                            self.max_distance)
+        with prof.span("hbond/walk", frames=b):
+            d_r, a_r, seg, valid, seg_list = tables.pack_frames(positions, boxes,
+                                                                self.max_distance)
         host_s = time.perf_counter() - t0
         hmax = tables.h_tab.shape[1]
         c = d_r.shape[1]
@@ -659,6 +663,8 @@ class HBondAnalysis:
                  "walk_s": tables.last_walk_s, "wire_bytes": 0, "device_ms": None,
                  "guarded": np.zeros(b, np.int64), "rescore_s": 0.0}
         self.batch_stats.append(stats)
+        if prof.TRACING:
+            prof.count("hbond_candidates", "analyze_batch", int(stats["candidates"].sum()))
 
         counts = np.zeros((b, n_pairs), np.int64)
         full = None if counts_only else {
@@ -673,10 +679,12 @@ class HBondAnalysis:
             if q_positions is not None:
                 host.append(np.asarray(inv_prec, np.float32))
             stats["wire_bytes"] = int(sum(x.nbytes for x in host))
-            pos_d = torch.as_tensor(ship, device=dev)
-            box_d = torch.as_tensor(boxes, device=dev)
-            ranks = [torch.as_tensor(x, device=dev) for x in (d_r, a_r, seg, valid)]
-            tab = tables.on(dev)
+            with prof.span("hbond/ship", bytes=stats["wire_bytes"]):
+                pos_d = torch.as_tensor(ship, device=dev)
+                box_d = torch.as_tensor(boxes, device=dev)
+                ranks = [torch.as_tensor(x, device=dev) for x in (d_r, a_r, seg, valid)]
+                tab = tables.on(dev)
+            score = prof.begin("hbond/score", frames=b) if prof.TRACING else None
             t_dev = dev.type == "cuda"
             if t_dev:  # device time of dequantization and scoring
                 ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -696,6 +704,8 @@ class HBondAnalysis:
             if t_dev:
                 ev1.record()
             for f0, f1, r in res:
+                if prof.TRACING:   # one a `.cpu()` below
+                    prof.count("host_sync", "hbond.copy", 5 + (len(full) if full else 0))
                 counts[f0:f1] = r["counts"].cpu().numpy()
                 stats["guarded"][f0:f1] = r["guard_cnt"].cpu().numpy()
                 guarded.append((r["g_frame"].cpu().numpy() + f0, r["g_slot"].cpu().numpy(),
@@ -705,8 +715,12 @@ class HBondAnalysis:
                         full[k][f0:f1] = r[k].cpu().numpy()
             if t_dev:
                 stats["device_ms"] = ev0.elapsed_time(ev1)
+            prof.end(score)
+        if prof.TRACING:
+            prof.count("hbond_guarded", "analyze_batch", int(stats["guarded"].sum()))
 
         t0 = time.perf_counter()
+        rescore = prof.begin("hbond/rescore") if prof.TRACING else None
         if counts_only:
             for g_frame, g_slot, keep_at in guarded:
                 for i in np.unique(g_frame):
@@ -717,6 +731,7 @@ class HBondAnalysis:
                     counts[i] += np.bincount(seg[i, ci], weights=delta,
                                              minlength=n_pairs).astype(np.int64)
             stats["rescore_s"] = time.perf_counter() - t0
+            prof.end(rescore)
             return {pair: counts[:, p] for p, pair in enumerate(self.pairs)}
 
         keep, dist, angle = full["keep"], full["dist"], full["angle"]
@@ -745,6 +760,7 @@ class HBondAnalysis:
                 ]
             maps.append(hmap)
         stats["rescore_s"] = time.perf_counter() - t0
+        prof.end(rescore)
         return maps
 
 

@@ -51,9 +51,15 @@ Tracing (the port's own spans and counters, no JAX counterpart):
   batch's decode, on the prefetch thread), `decode_wait`, `stage`,
   `dispatch` (with a child `dispatch/<observable>` per observable of the
   step), `fetch` (the packed fetch), `load_device` with `decode_wait`,
-  `ship` and `narrow` under it.  Counter: `host_sync`, per site, each time
-  a call that makes the host wait for the device is passed, on any
-  device.
+  `ship` and `narrow` under it; `hbond` (batch, frames; the cell method's
+  work on each streamed batch, `PipelineRunner.run`'s `on_batch`) with
+  `hbond/walk` (the candidate walk and packing), `hbond/ship` (the rank
+  copy), `hbond/score` (the device scorer and its copies back) and
+  `hbond/rescore` (the host re-score of guarded triples) under it, from
+  `HBondAnalysis.analyze_batch`.  Counters: `host_sync`, per site, each
+  time a call that makes the host wait for the device is passed, on any
+  device; `hbond_candidates` and `hbond_guarded` (site `analyze_batch`),
+  a batch's candidate pairs and guarded triples.
 """
 
 from __future__ import annotations
